@@ -1,0 +1,79 @@
+"""Where each op runs, and the launch counts that prove it.
+
+The JAX package resolves kernel modes from the platform and env knobs
+(``repro/kernels/dispatch.py:61-135``).  The port keeps one rule and no
+knobs: a tensor on a CUDA device goes to the hand-written kernel, a tensor
+on the CPU goes to the kernel's plain PyTorch version.  Nothing sends a
+CUDA tensor to the plain version -- a kernel that cannot build or launch
+raises.
+
+Entry points (index, segments, servables, the launcher) take a ``device``
+argument resolved by :func:`resolve_device`: ``None`` means the card, and
+with no card that raises instead of quietly running on the CPU.
+
+``launches`` counts, per kernel, the launches its wrapper made -- one per
+launch, incremented right after the kernel was enqueued and nowhere else --
+so a run can show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+
+KERNELS = ("hash_mm", "dct_mm", "fused_query", "merge")
+
+launches: Counter = Counter({name: 0 for name in KERNELS})
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU.  Raises when the card is asked for (or implied) and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device and none is available; "
+                "pass device='cpu' to run the plain PyTorch versions")
+        return dev
+    if dev.type == "cpu":
+        return dev
+    raise ValueError(f"unsupported device {dev}; want 'cuda' or 'cpu'")
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True: launch the CUDA kernel; False: run the plain version."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"tensor on unsupported device {t.device}")
+
+
+def check_cuda_args(op: str, *tensors: torch.Tensor,
+                    dtypes: tuple = ()) -> None:
+    """Raise unless every tensor lies on one CUDA device, is contiguous and
+    has the paired dtype (``dtypes[i]`` for ``tensors[i]``)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: the kernel takes CUDA tensors, got {dev}")
+    for i, t in enumerate(tensors):
+        if t.device != dev:
+            raise ValueError(f"{op}: argument {i} on {t.device}, want {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: argument {i} is not contiguous")
+        if i < len(dtypes) and t.dtype != dtypes[i]:
+            raise TypeError(f"{op}: argument {i} is {t.dtype}, "
+                            f"want {dtypes[i]}")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as an integer handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,51 @@
+"""K1 hash_mm on the card: ``floor((X @ A) / r + b)`` with its projections.
+
+Launches ``csrc/hash_mm.cu`` (the port of ``repro/kernels/hash_mm.py``).
+Its plain version is :func:`repro_torch.kernels.ref.hash_mm_proj_ref`,
+re-exported here as ``plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build, dispatch
+from .ref import hash_mm_proj_ref as plain  # noqa: F401  (the plain version)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    lib = _build.library("hash_mm")
+    fn = lib.hash_mm_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def hash_mm(x: torch.Tensor, alpha: torch.Tensor, b: torch.Tensor, r: float
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, N), alpha (N, K), b (K,), all fp32 on one CUDA device.
+    Returns (hashes (B, K) int32, proj (B, K) f32)."""
+    f32 = torch.float32
+    dispatch.check_cuda_args("hash_mm", x, alpha, b, dtypes=(f32, f32, f32))
+    if x.dim() != 2 or alpha.dim() != 2 or x.shape[1] != alpha.shape[0] \
+            or b.shape != (alpha.shape[1],):
+        raise ValueError(f"hash_mm: shapes x {tuple(x.shape)}, alpha "
+                         f"{tuple(alpha.shape)}, b {tuple(b.shape)}")
+    m, n = x.shape
+    k = alpha.shape[1]
+    h = torch.empty((m, k), dtype=torch.int32, device=x.device)
+    proj = torch.empty((m, k), dtype=f32, device=x.device)
+    if m == 0 or k == 0:
+        return h, proj
+    lib, fn = _launcher()
+    code = fn(x.data_ptr(), alpha.data_ptr(), b.data_ptr(), float(r), m, n, k,
+              h.data_ptr(), proj.data_ptr(), dispatch.stream_handle(x))
+    _build.check(lib, "hash_mm", code)
+    dispatch.launches["hash_mm"] += 1
+    return h, proj

@@ -1,0 +1,77 @@
+"""The ops the index and embedders call, routed by where their input lies.
+
+A CUDA tensor goes to the hand-written kernel (:mod:`.hash_mm`,
+:mod:`.dct_mm`, :mod:`.fused_query`, :mod:`.merge`), a CPU tensor to the
+kernel's plain version in :mod:`.ref` -- see :mod:`.dispatch`.  Shapes
+follow the JAX package's ``repro/kernels/ops.py``: ``B``/``nq`` rows, ``N``
+embedding dims, ``L*K`` hashes, ``C`` candidates per query, ``k`` results.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import dispatch, ref
+from .dct_mm import dct_mm
+from .fused_query import fused_query_topk as _fused_query_kernel
+from .hash_mm import hash_mm
+from .merge import sort_pairs_kernel
+
+
+def pstable_hash_proj(x, alpha, b, r: float):
+    """Hashes and pre-floor projections: ``proj = (x @ alpha) / r + b``,
+    ``hashes = floor(proj)``.  x (B, N) f32; alpha (N, L*K); b (L*K,).
+    Returns (hashes (B, L*K) int32, proj (B, L*K) f32)."""
+    if dispatch.use_kernel(x):
+        return hash_mm(x, alpha, b, r)
+    return ref.hash_mm_proj_ref(x, alpha, b, r)
+
+
+def cheb_embed(fvals, dct_t, scale):
+    """Fused DCT + orthonormal scaling: ``(fvals @ dct_t) * scale``.
+    fvals (B, N) samples at the Chebyshev nodes; returns (B, N) f32."""
+    if dispatch.use_kernel(fvals):
+        return dct_mm(fvals, dct_t, scale)
+    return ref.dct_mm_ref(fvals, dct_t, scale)
+
+
+def fused_query_topk(q, db, ids, k: int, p: float = 2.0, valid_items=None):
+    """Gather + masked L^p re-rank + top-k without materialising
+    (nq, C, N) on the card.  q (nq, N); db (M, N); ids (nq, C) int32, -1 =
+    empty slot.  Returns ascending (dists (nq, k) f32, ids (nq, k) int32),
+    (+inf, -1) padded.  On the card k must be <= 128 (the kernel's
+    contract); a larger k raises rather than falling back."""
+    if dispatch.use_kernel(q):
+        return _fused_query_kernel(q, db, ids, k, p=p,
+                                   valid_items=valid_items)
+    return ref.fused_query_topk_ref(q, db, ids, k, p=p,
+                                    valid_items=valid_items)
+
+
+def _pad_to_k(dists, ids, k: int):
+    """Right-pad the merge pool to at least k columns with (+inf, -1)."""
+    m = ids.shape[-1]
+    if m < k:
+        pad = k - m
+        dists = torch.cat([dists, dists.new_full((dists.shape[0], pad),
+                                                 torch.inf)], dim=-1)
+        ids = torch.cat([ids, ids.new_full((ids.shape[0], pad), -1)], dim=-1)
+    return dists, ids
+
+
+def merge_topk(dists, ids, k: int):
+    """Merge per-segment top-k lists into one top-k.
+
+    dists/ids: (nq, M) f32/int32, the concatenation of every segment's k
+    results (-1 id = empty slot).  Returns (dists (nq, k), ids (nq, k)),
+    ascending under the total (distance, id) order, (+inf, -1) padded --
+    the order that makes a segmented query reproduce a single index's."""
+    dists, ids = _pad_to_k(dists, ids, k)
+    d = torch.where(ids < 0, torch.inf, dists).contiguous()
+    ids = ids.to(torch.int32).contiguous()
+    if dispatch.use_kernel(d):
+        sd, si = sort_pairs_kernel(d, ids, n_out=k)
+    else:
+        sd, si = ref.sort_pairs(d, ids)
+        sd, si = sd[..., :k], si[..., :k]
+    return sd, torch.where(torch.isinf(sd), -1, si)

@@ -1,0 +1,143 @@
+"""Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
+
+Each function computes what its CUDA kernel computes, in ordinary tensor
+ops.  On a CPU tensor the ops wrappers run these; on the card
+``chip_smoke.py`` holds every kernel against them on the same inputs, and
+the CPU tests hold them against the JAX package's ``repro.kernels.ref`` and
+``repro.kernels.merge``.
+
+Tie order: ``lax.top_k`` puts the lower index first among equal values;
+``torch.topk`` promises no order, so the selections here use a stable
+ascending sort, which does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SENTINEL_ID = torch.iinfo(torch.int32).max
+
+
+# -- K1 hash_mm, K4 dct_mm ----------------------------------------------------
+
+
+def hash_mm_proj_ref(x: torch.Tensor, alpha: torch.Tensor, b: torch.Tensor,
+                     r: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(floor hashes int32, pre-floor projections f32) with
+    proj = (x @ alpha) / r + b -- true division, as the kernel does."""
+    proj = (x.float() @ alpha.float()) / r + b.float()
+    return torch.floor(proj).to(torch.int32), proj
+
+
+def dct_mm_ref(fvals: torch.Tensor, dct_t: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """(fvals @ dct_t) * scale."""
+    return (fvals.float() @ dct_t.float()) * scale.float()
+
+
+# -- K2 fused_query -----------------------------------------------------------
+
+
+def rerank_ref(q: torch.Tensor, emb: torch.Tensor, ids: torch.Tensor,
+               p: float = 2.0) -> torch.Tensor:
+    """Masked L^p distances between q (B, N) and emb (B, C, N); +inf where
+    ids < 0."""
+    diff = emb.float() - q.float()[:, None, :]
+    if p == 2.0:
+        d = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    elif p == 1.0:
+        d = torch.sum(torch.abs(diff), dim=-1)
+    else:
+        d = torch.sum(torch.abs(diff) ** p, dim=-1) ** (1.0 / p)
+    return torch.where(ids < 0, torch.inf, d)
+
+
+def fused_query_topk_ref(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
+                         k: int, p: float = 2.0, valid_items=None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather + masked re-rank + top-k, materialising (nq, C, N) -- the
+    path the fused kernel exists to avoid.  Returns ascending (dists (nq, k)
+    f32, ids (nq, k) int32), -1 where the distance is +inf."""
+    m = db.shape[0]
+    emb = db[ids.clamp(0, m - 1).long()]                  # (nq, C, N)
+    d = rerank_ref(q, emb, ids, p)
+    if valid_items is not None:
+        d = torch.where(ids >= valid_items, torch.inf, d)
+    dist, idx = torch.sort(d, dim=-1, stable=True)
+    dist, idx = dist[:, :k], idx[:, :k]
+    out_ids = torch.gather(ids.to(torch.int32), 1, idx)
+    return dist, torch.where(torch.isinf(dist), -1, out_ids)
+
+
+# -- K3 merge: the bitonic (distance, id) network -----------------------------
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _compare_exchange(d: torch.Tensor, i: torch.Tensor, span: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pass: compare-exchange the two halves of every length-``span``
+    chunk under the (distance, id) lexicographic order."""
+    shape = d.shape
+    p = shape[-1]
+    dr = d.reshape(*shape[:-1], p // span, 2, span // 2)
+    ir = i.reshape(*shape[:-1], p // span, 2, span // 2)
+    d0, d1 = dr[..., 0, :], dr[..., 1, :]
+    i0, i1 = ir[..., 0, :], ir[..., 1, :]
+    swap = (d1 < d0) | ((d1 == d0) & (i1 < i0))
+    lo_d, hi_d = torch.where(swap, d1, d0), torch.where(swap, d0, d1)
+    lo_i, hi_i = torch.where(swap, i1, i0), torch.where(swap, i0, i1)
+    d = torch.stack([lo_d, hi_d], dim=-2).reshape(shape)
+    i = torch.stack([lo_i, hi_i], dim=-2).reshape(shape)
+    return d, i
+
+
+def _network(d: torch.Tensor, i: torch.Tensor, sorted_run: int = 1
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The staged bitonic network over a power-of-two last axis.  Entering
+    each stage every length-``run`` chunk is sorted; reversing the odd chunk
+    of each pair makes each length-``2*run`` chunk bitonic, and log2(2*run)
+    compare-exchange passes sort it.  ``sorted_run > 1`` skips the stages
+    the caller's pre-sorted runs make unnecessary."""
+    shape = d.shape
+    p = shape[-1]
+    run = sorted_run
+    while run < p:
+        dr = d.reshape(*shape[:-1], p // (2 * run), 2, run)
+        ir = i.reshape(*shape[:-1], p // (2 * run), 2, run)
+        dr = torch.cat([dr[..., :1, :], dr[..., 1:, :].flip(-1)], dim=-2)
+        ir = torch.cat([ir[..., :1, :], ir[..., 1:, :].flip(-1)], dim=-2)
+        d, i = dr.reshape(shape), ir.reshape(shape)
+        span = 2 * run
+        while span >= 2:
+            d, i = _compare_exchange(d, i, span)
+            span //= 2
+        run *= 2
+    return d, i
+
+
+def _pad_pow2(d: torch.Tensor, i: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Right-pad the last axis to a power of two with (+inf, INT32_MAX),
+    which sorts after every real pair."""
+    m = d.shape[-1]
+    p = next_pow2(m)
+    if p != m:
+        pad = p - m
+        d = torch.cat([d, d.new_full((*d.shape[:-1], pad), torch.inf)], -1)
+        i = torch.cat([i, i.new_full((*i.shape[:-1], pad), SENTINEL_ID)], -1)
+    return d, i, m
+
+
+def sort_pairs(d: torch.Tensor, i: torch.Tensor, sorted_run: int = 1
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort (distance, id) pairs ascending-lexicographic through the
+    bitonic network.  d: (..., M) f32; i: (..., M) int32."""
+    dp, ip, m = _pad_pow2(d.float(), i.to(torch.int32))
+    ds, is_ = _network(dp, ip, sorted_run=sorted_run)
+    return ds[..., :m], is_[..., :m]

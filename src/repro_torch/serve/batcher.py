@@ -1,0 +1,149 @@
+"""Deadline-driven micro-batcher over a fixed chunk-shape palette.
+
+The port's own copy of ``repro/serve/batcher.py`` (telemetry hooks and the
+wall-clock pump thread left out; the front-end that needs the thread is a
+later slice).  Requests with one (k, n_probes) signature share a row buffer;
+a signature flushes when a full largest chunk is queued or its oldest
+request's deadline (``max_delay_ms``) passes, and every flush is padded up
+to a palette size, so the index only ever sees ``len(chunk_sizes)`` query
+shapes per signature.  ``submit`` returns a Future; ``pump`` (called by the
+serving loop, or by tests with an injected clock) decides flushes;
+``flush_all`` drains everything.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import Counter
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+# fn(queries_padded (c, N), k, n_probes) -> (ids (c, k), dists (c, k)), numpy
+QueryFn = Callable[[np.ndarray, int, int], Tuple[np.ndarray, np.ndarray]]
+
+
+@dataclass
+class _Pending:
+    queries: np.ndarray
+    k: int
+    n_probes: int
+    deadline: float
+    future: Future = field(default_factory=Future)
+
+
+class MicroBatcher:
+    """Coalesces query requests into palette-sized padded chunks."""
+
+    def __init__(self, query_fn: QueryFn, *,
+                 chunk_sizes: Sequence[int] = (8, 32, 128),
+                 max_delay_ms: float = 5.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 on_batch: Optional[Callable[[int, int, float], None]] = None):
+        if not chunk_sizes or sorted(chunk_sizes) != list(chunk_sizes):
+            raise ValueError("chunk_sizes must be ascending and non-empty")
+        self.query_fn = query_fn
+        self.chunk_sizes = tuple(int(c) for c in chunk_sizes)
+        self.max_delay = max_delay_ms / 1e3
+        self.clock = clock
+        self.on_batch = on_batch            # (rows_real, rows_padded, dt)
+        self.shape_counts: Counter = Counter()   # (chunk, k, n_probes) -> n
+        self.n_requests = 0
+        self.n_batches = 0
+        self._q: Dict[Tuple[int, int], List[_Pending]] = {}
+        self._lock = threading.Lock()
+
+    def submit(self, queries, k: int, n_probes: int = 1) -> Future:
+        """Enqueue a (nq, N) request; resolves to (ids (nq, k), dists)."""
+        q = np.asarray(queries, np.float32)
+        if q.ndim != 2:
+            raise ValueError(f"expected (nq, N) queries, got {q.shape}")
+        req = _Pending(queries=q, k=int(k), n_probes=int(n_probes),
+                       deadline=self.clock() + self.max_delay)
+        with self._lock:
+            self._q.setdefault((req.k, req.n_probes), []).append(req)
+            self.n_requests += 1
+        return req.future
+
+    def query(self, queries, k: int, n_probes: int = 1):
+        """Synchronous convenience: submit + flush everything + wait."""
+        fut = self.submit(queries, k, n_probes)
+        self.flush_all()
+        return fut.result()
+
+    def _chunk_for(self, rows: int) -> int:
+        for c in self.chunk_sizes:
+            if rows <= c:
+                return c
+        return self.chunk_sizes[-1]
+
+    def pump(self, now: Optional[float] = None, force: bool = False) -> int:
+        """Flush every signature whose deadline passed or whose buffer
+        filled the largest chunk.  Returns the number of batches run."""
+        now = self.clock() if now is None else now
+        max_chunk = self.chunk_sizes[-1]
+        todo: List[Tuple[Tuple[int, int], List[_Pending]]] = []
+        with self._lock:
+            for key, reqs in self._q.items():
+                if not reqs:
+                    continue
+                rows = sum(r.queries.shape[0] for r in reqs)
+                if force or rows >= max_chunk or reqs[0].deadline <= now:
+                    todo.append((key, reqs))
+                    self._q[key] = []
+        return sum(self._dispatch(key, reqs) for key, reqs in todo)
+
+    def flush_all(self) -> int:
+        return self.pump(force=True)
+
+    def _dispatch(self, key: Tuple[int, int], reqs: List[_Pending]) -> int:
+        """Pack the requests' rows into palette chunks, run, scatter back.
+        A failure is routed to every stranded Future: a batch may die, the
+        batcher does not."""
+        k, n_probes = key
+        batches = 0
+        try:
+            rows = np.concatenate([r.queries for r in reqs])
+            total, n_dims = rows.shape
+            max_chunk = self.chunk_sizes[-1]
+            outs_i, outs_d = [], []
+            pos = 0
+            while pos < total:
+                take = min(max_chunk, total - pos)
+                chunk = self._chunk_for(take)
+                buf = np.zeros((chunk, n_dims), np.float32)
+                buf[:take] = rows[pos:pos + take]
+                t0 = self.clock()
+                ids, dists = self.query_fn(buf, k, n_probes)
+                self.shape_counts[(chunk, k, n_probes)] += 1
+                self.n_batches += 1
+                batches += 1
+                if self.on_batch is not None:
+                    self.on_batch(take, chunk, self.clock() - t0)
+                outs_i.append(np.asarray(ids)[:take])
+                outs_d.append(np.asarray(dists)[:take])
+                pos += take
+            all_i = np.concatenate(outs_i)
+            all_d = np.concatenate(outs_d)
+        except Exception as e:  # noqa: BLE001 -- routed to the futures
+            for r in reqs:
+                if not r.future.done():
+                    r.future.set_exception(e)
+            return batches
+        pos = 0
+        for r in reqs:
+            m = r.queries.shape[0]
+            r.future.set_result((all_i[pos:pos + m], all_d[pos:pos + m]))
+            pos += m
+        return batches
+
+    def unique_shapes(self) -> int:
+        """Distinct padded (chunk, k, n_probes) shapes dispatched so far."""
+        return len(self.shape_counts)
+
+    def pending(self) -> int:
+        with self._lock:
+            return sum(len(v) for v in self._q.values())

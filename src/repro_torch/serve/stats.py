@@ -1,0 +1,153 @@
+"""Serving statistics: QPS, latency percentiles, recall proxy, occupancy.
+
+The port's own copy of the parts of ``repro/serve/stats.py`` the slice
+uses (metrics-registry publishing and fan-out telemetry left out).
+Host-side and lock-guarded: a bounded deque of (t, n) events per rate
+window and a bounded latency reservoir for percentiles.  The recall proxy
+replays a probe set through the segmented index and an exact brute-force
+scan over its live items.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core import index as lidx
+
+
+class ServingStats:
+    """Sliding-window rates + latency reservoir for one servable."""
+
+    def __init__(self, *, window_s: float = 10.0, reservoir: int = 4096,
+                 clock: Callable[[], float] = time.monotonic):
+        self.window = window_s
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._queries: deque = deque()       # (t, n_queries)
+        self._inserts: deque = deque()
+        self._lat = np.zeros((reservoir,), np.float64)
+        self._lat_n = 0                      # total recorded (ring index)
+        self.totals = {"queries": 0, "inserts": 0, "deletes": 0, "batches": 0,
+                       "rejected_inserts": 0}
+        self._rows_real = 0
+        self._rows_pad = 0
+        self._recall: Optional[float] = None
+
+    def _trim(self, dq: deque, now: float) -> None:
+        while dq and dq[0][0] < now - self.window:
+            dq.popleft()
+
+    def record_query(self, n: int, latency_s: Optional[float] = None) -> None:
+        now = self.clock()
+        with self._lock:
+            self._queries.append((now, n))
+            self._trim(self._queries, now)
+            self.totals["queries"] += n
+            if latency_s is not None:
+                self._lat[self._lat_n % self._lat.shape[0]] = latency_s
+                self._lat_n += 1
+
+    def record_batch(self, rows_real: int, rows_padded: int,
+                     latency_s: float) -> None:
+        """One micro-batch: ``rows_real`` request rows in a
+        ``rows_padded``-row palette chunk."""
+        self.record_query(rows_real, latency_s)
+        with self._lock:
+            self.totals["batches"] += 1
+            self._rows_real += rows_real
+            self._rows_pad += max(int(rows_padded) - int(rows_real), 0)
+
+    def record_insert(self, n: int) -> None:
+        now = self.clock()
+        with self._lock:
+            self._inserts.append((now, n))
+            self._trim(self._inserts, now)
+            self.totals["inserts"] += n
+
+    def record_rejected(self, n: int) -> None:
+        with self._lock:
+            self.totals["rejected_inserts"] += n
+
+    def record_delete(self, n: int) -> None:
+        with self._lock:
+            self.totals["deletes"] += n
+
+    def record_recall(self, recall: float) -> None:
+        with self._lock:
+            self._recall = float(recall)
+
+    def _rate(self, dq: deque) -> float:
+        now = self.clock()
+        with self._lock:
+            self._trim(dq, now)
+            if not dq:
+                return 0.0
+            span = max(now - dq[0][0], 1e-9)
+            return sum(n for _, n in dq) / span
+
+    def qps(self) -> float:
+        return self._rate(self._queries)
+
+    def insert_rate(self) -> float:
+        return self._rate(self._inserts)
+
+    def latency_percentiles(self) -> dict:
+        with self._lock:
+            n = min(self._lat_n, self._lat.shape[0])
+            if n == 0:
+                return {"p50_ms": 0.0, "p95_ms": 0.0, "p99_ms": 0.0}
+            lat = np.sort(self._lat[:n]) * 1e3
+        return {"p50_ms": float(np.percentile(lat, 50)),
+                "p95_ms": float(np.percentile(lat, 95)),
+                "p99_ms": float(np.percentile(lat, 99))}
+
+    def padding_efficiency(self) -> float:
+        """Fraction of dispatched batch rows that were real requests."""
+        with self._lock:
+            real, pad = self._rows_real, self._rows_pad
+        return real / (real + pad) if (real + pad) else 1.0
+
+    def snapshot(self) -> dict:
+        return {"qps": self.qps(),
+                "insert_rate": self.insert_rate(),
+                **self.latency_percentiles(),
+                "totals": dict(self.totals),
+                "padding_efficiency": self.padding_efficiency(),
+                "recall_proxy": self._recall}
+
+
+def recall_proxy(segmented, queries, k: int, n_probes: int = 1) -> float:
+    """Recall@k of the segmented index vs exact brute force over its live
+    items, on the index's device.  O(n_live * nq): use a small probe set."""
+    emb, gid = segmented.live_items()
+    if emb.shape[0] == 0:
+        return 1.0
+    q = torch.as_tensor(queries, dtype=torch.float32, device=emb.device)
+    eids, _ = lidx.brute_force_topk(emb, q, min(k, emb.shape[0]),
+                                    p=segmented.cfg.p)
+    exact = gid[eids]
+    got, _ = segmented.query(q, k, n_probes=n_probes)
+    hit = (got[:, :, None] == exact[:, None, :]).any(dim=1)
+    return float(hit.float().mean())
+
+
+def occupancy_report(segmented) -> dict:
+    """Aggregate segment occupancy for reports."""
+    per_seg = segmented.occupancy()
+    n_items = sum(s["n_items"] for s in per_seg)
+    n_live = sum(s["n_live"] for s in per_seg)
+    cap = segmented.cfg.bucket_capacity
+    over = [float((seg.state.counts > cap).float().mean())
+            for seg in segmented.segments if seg.n_items]
+    return {"n_segments": len(per_seg),
+            "n_items": n_items,
+            "n_live": n_live,
+            "tombstone_frac": (n_items - n_live) / n_items if n_items else 0.0,
+            "bucket_overflow_frac": float(np.mean(over)) if over else 0.0,
+            "segments": per_seg}
