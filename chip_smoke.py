@@ -11,11 +11,16 @@ each of which raises on failure (the script then exits non-zero):
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, at the main path's shapes and at edge shapes;
 4. parity: the l2-basis pipeline at 8,192 items on the CPU (plain
-   versions) and on the card (kernels) with one injected family;
+   versions) and on the card (kernels) with one injected family, at fp32
+   and at the int8 tier (whose gids must be equal);
 5. timings: each kernel, its plain version and a PyTorch library call,
    CUDA-event medians, with the bytes and operations for the bound;
 6. main path: ``repro_torch.launch.serve`` filled to 262,144 items
-   (256 sealed segments), then 20 demo steps; launch counts read around it.
+   (256 sealed segments), then 20 demo steps; launch counts read around it;
+7. int8 path: the same run with ``precision="int8"`` (phase 6's tenant
+   still alive), then both tenants answer the same 64 probes; and the
+   simhash path: ``ops.simhash_signature`` over every live item.  Launch
+   counts are read around each.
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -42,12 +47,20 @@ WARMUP, REPS, GRAPH_REPLAYS = 10, 50, 10
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 
+INT8_MAX_SEGMENTS = 409          # K3 holds <= 16,384 pairs: 409 x kq = 40
+SIMHASH_BATCH, SIMHASH_BITS = 512, 1024   # bench_hash_throughput's shape
+
 REPLACES = {
     "hash_mm": "src/repro/kernels/hash_mm.py:25",
     "fused_query": "src/repro/kernels/fused_query.py:51",
     "merge": "src/repro/kernels/merge.py:123",
     "dct_mm": "src/repro/kernels/dct_mm.py:27",
+    "quantized_query": "src/repro/kernels/quantize.py:146",
+    "rerank": "src/repro/kernels/rerank.py:24",
+    "simhash_pack": "src/repro/kernels/simhash_pack.py:23",
 }
+FP32_PATH = ("hash_mm", "dct_mm", "fused_query", "merge")
+INT8_PATH = FP32_PATH + ("quantized_query", "rerank")
 
 
 def log(*a):
@@ -166,6 +179,18 @@ def check_dct_mm(gen, m, n):
     return err
 
 
+def _distinct(dp, dfull, k):
+    """Slots whose plain distance is not (nearly) tied with a neighbour in
+    the full plain order: there the ids must agree."""
+    import torch
+    near = lambda a, b: (a - b).abs() <= 1e-5 * b.abs().clamp(min=1e-30)
+    tie = torch.zeros_like(dp, dtype=torch.bool)
+    tie[:, 1:] |= near(dfull[:, 1:k], dfull[:, :k - 1])
+    nxt = dfull[:, 1:k + 1]
+    tie[:, :nxt.shape[1]] |= near(dfull[:, :nxt.shape[1]], nxt)
+    return ~tie
+
+
 def check_fused_query(gen, nq, n, m, c, k, p=2.0, valid_items=None,
                       invalid_rows=0):
     import torch
@@ -189,12 +214,7 @@ def check_fused_query(gen, nq, n, m, c, k, p=2.0, valid_items=None,
         raise AssertionError(f"fused_query {nq}x{c} k={k}: inf pattern")
     if not torch.allclose(d[fin], dp[fin], rtol=1e-5, atol=1e-6):
         raise AssertionError(f"fused_query {nq}x{c} k={k}: distances")
-    near = lambda a, b: (a - b).abs() <= 1e-5 * b.abs().clamp(min=1e-30)
-    tie = torch.zeros_like(dp, dtype=torch.bool)
-    tie[:, 1:] |= near(dfull[:, 1:k], dfull[:, :k - 1])
-    nxt = dfull[:, 1:k + 1]
-    tie[:, :nxt.shape[1]] |= near(dfull[:, :nxt.shape[1]], nxt)
-    tie &= fin
+    tie = ~_distinct(dp, dfull, k) & fin
     bad = int(((i != ip) & ~tie).sum())
     if bad:
         raise AssertionError(f"fused_query {nq}x{c} k={k}: {bad} ids differ "
@@ -204,6 +224,104 @@ def check_fused_query(gen, nq, n, m, c, k, p=2.0, valid_items=None,
         f"valid={valid_items} invalid_rows={invalid_rows}: ok "
         f"(max err {err:.3g}, {int(tie.sum())} tied slots)")
     return err
+
+
+def check_quantized_query(gen, nq, m, c, k, dtype, p=2.0, valid_items=None,
+                          invalid_rows=0, n=64):
+    """K5 against its plain version: bit for bit for int8 at p in {1, 2}
+    (every partial sum is an exact integer), else distances rtol 1e-5 atol
+    1e-6 and ids equal at distinct distances."""
+    import torch
+    from repro_torch.kernels import quantize, quantized_query, ref
+    db = torch.randn((m, n), generator=gen)
+    db[1::7] = db[::7][:db[1::7].shape[0]]            # duplicate rows: ties
+    tier = "int8" if dtype == torch.int8 else "bf16"
+    codes, scale = quantize.encode(db.cuda(), tier)
+    amax = db.abs().max()
+    q = (db[torch.randint(0, m, (nq,), generator=gen)]
+         + 0.2 * torch.randn((nq, n), generator=gen)).clamp(-amax, amax)
+    q = q.cuda()                            # |q / scale| <= 127: exact sums
+    ids = torch.randint(-1, m, (nq, c), generator=gen,
+                        dtype=torch.int32).cuda()
+    ids[:invalid_rows] = -1
+    d, i = quantized_query.quantized_query_topk(q, codes, scale, ids, k, p=p,
+                                                valid_items=valid_items)
+    dp, ip = ref.quantized_topk_ref(q, codes, scale, ids, k, p=p,
+                                    valid_items=valid_items)
+    torch.cuda.synchronize()
+    tag = (f"quantized_query {tier} nq={nq} M={m} C={c} k={k} p={p} "
+           f"valid={valid_items} invalid_rows={invalid_rows}")
+    if tier == "int8" and p in (1.0, 2.0):
+        if not (torch.equal(bits(d), bits(dp)) and torch.equal(i, ip)):
+            raise AssertionError(f"{tag}: not bit-identical to the plain "
+                                 "version")
+        log(f"  {tag}: bit-identical")
+        return 0.0
+    fin = torch.isfinite(dp)
+    if not torch.equal(fin, torch.isfinite(d)):
+        raise AssertionError(f"{tag}: inf pattern")
+    if not torch.allclose(d[fin], dp[fin], rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"{tag}: distances")
+    dfull, _ = ref.quantized_topk_ref(q, codes, scale, ids, c, p=p,
+                                      valid_items=valid_items)
+    ok = _distinct(dp, dfull, k) & fin
+    bad = int(((i != ip) & ok).sum())
+    if bad:
+        raise AssertionError(f"{tag}: {bad} ids differ at distinct "
+                             "distances")
+    err = float((d[fin] - dp[fin]).abs().max()) if fin.any() else 0.0
+    log(f"  {tag}: ok (max err {err:.3g}, {int((~ok & fin).sum())} tied "
+        "slots)")
+    return err
+
+
+def check_rerank(gen, b, c, n=64, p=2.0):
+    """K6 against its plain version: rtol 1e-5 atol 1e-6, +inf exactly
+    where the id is < 0."""
+    import torch
+    from repro_torch.kernels import ref, rerank
+    q = torch.randn((b, n), generator=gen).cuda()
+    emb = torch.randn((b, c, n), generator=gen).cuda()
+    ids = torch.randint(-1, 10 * c, (b, c), generator=gen,
+                        dtype=torch.int32).cuda()
+    d = rerank.rerank_distances(q, emb, ids, p=p)
+    want = ref.rerank_ref(q, emb, ids, p)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isinf(d), ids < 0):
+        raise AssertionError(f"rerank {b}x{c}x{n} p={p}: inf pattern")
+    fin = ids >= 0
+    if not torch.allclose(d[fin], want[fin], rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"rerank {b}x{c}x{n} p={p}: max err "
+                             f"{(d[fin] - want[fin]).abs().max().item()}")
+    err = float((d[fin] - want[fin]).abs().max())
+    log(f"  rerank B={b} C={c} N={n} p={p}: ok (max err {err:.3g})")
+    return err
+
+
+def check_simhash(gen, m, n, k):
+    """K7 against its plain version: every bit equal where |x @ A| >= 1e-5
+    (a sum within 1e-5 of 0 may take either sign in another order)."""
+    import torch
+    from repro_torch.kernels import ref, simhash_pack
+    x = torch.randn((m, n), generator=gen).cuda()
+    a = torch.randn((n, k), generator=gen).cuda()
+    x[0] = 0.0                                    # all projections 0: -1
+    sig = simhash_pack.simhash_pack(x, a)
+    want = ref.simhash_pack_ref(x, a)
+    proj = (x.double() @ a.double()).abs()
+    torch.cuda.synchronize()
+    shifts = torch.arange(32, device=x.device)
+    got_b = ((sig[..., None] >> shifts) & 1).reshape(m, k)
+    want_b = ((want[..., None] >> shifts) & 1).reshape(m, k)
+    near = proj < 1e-5
+    bad = int(((got_b != want_b) & ~near).sum())
+    if bad or not bool((sig[0] == -1).all()):
+        raise AssertionError(f"simhash {m}x{n}x{k}: {bad} bits differ away "
+                             "from |proj| < 1e-5")
+    flips = int((got_b != want_b).sum())
+    log(f"  simhash_pack {m}x{n}x{k}: ok ({int(near.sum())} values within "
+        f"1e-5 of 0, {flips} bits flipped)")
+    return float(flips > 0)        # max |bit - plain bit| over the bits
 
 
 def check_merge(gen, rows, m, sorted_run=1, n_out=None, runs=None):
@@ -327,13 +445,83 @@ def parity_run():
     return out["k2_inputs"]
 
 
+def int8_parity_run():
+    """The int8 tier at 8,192 items on the CPU and on the card, from one
+    set of embeddings (embedded once on the CPU, so K4 is not in the
+    comparison: phase 4's fp32 run covers it).  The gids must be equal.
+    Also captures, from the card's run, a real K5 input (one sealed
+    segment against a 128-row micro-batch) and a real K6 input (the
+    survivor rows of that batch)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.kernels import ops, quantize
+    from repro_torch.launch.serve import default_spec, sample_fvals
+    from repro_torch.serve import Servable
+
+    spec = default_spec(precision="int8")
+    cfg = spec.index_config()
+    rng = np.random.default_rng(4321)
+    L, K = cfg.n_tables, cfg.n_hashes
+    fam = (rng.normal(size=(cfg.n_dims, L * K)).astype(np.float32),
+           rng.uniform(size=(L * K,)).astype(np.float32),
+           (rng.integers(0, 2 ** 31 - 1, size=(L, K)) | 1).astype(np.uint32))
+    cpu_sv = Servable(spec, device="cpu",
+                      family=convert.family_from_numpy(*fam, device="cpu"))
+    drng = np.random.default_rng(77)
+    nodes = cpu_sv.nodes()
+    emb = cpu_sv.embed(sample_fvals(drng, nodes, PARITY_ITEMS)).numpy()
+    q = cpu_sv.embed(sample_fvals(drng, nodes, 128)).numpy()
+    q = q + 0.05 * drng.normal(size=q.shape).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sv = cpu_sv if dev == "cpu" else Servable(
+            spec, device=dev,
+            family=convert.family_from_numpy(*fam, device=dev))
+        gids = sv.insert(emb)
+        sv.delete(gids[::17])
+        out[dev] = sv.query(q[:64], 10, 4)
+        out[dev + "_segments"] = len(sv.index.segments)
+    (g_c, d_c), (g_g, d_g) = out["cpu"], out["cuda"]
+    if not np.array_equal(g_c, g_g):
+        rows = np.nonzero((g_c != g_g).any(axis=1))[0]
+        raise AssertionError(f"int8 parity: gids differ in {len(rows)} of 64 "
+                             f"queries, first {rows[:5].tolist()}")
+    fin = np.isfinite(d_c)
+    if not (np.array_equal(fin, np.isfinite(d_g))
+            and np.allclose(d_c[fin], d_g[fin], rtol=1e-5, atol=1e-6)):
+        raise AssertionError("int8 parity: distances of equal gids differ")
+    log(f"  int8 parity at {PARITY_ITEMS} items ({out['cuda_segments']} "
+        "segments), 64 queries: gids equal, distances rtol 1e-5")
+
+    # capture one real K5 and one real K6 input from a 128-row batch
+    captured = {}
+    real_q, real_rs = ops.quantized_query_topk, quantize.rerank_survivors
+
+    def grab_q(*a, **kw):
+        captured.setdefault("k5", (a, kw))
+        return real_q(*a, **kw)
+
+    def grab_rs(*a, **kw):
+        captured.setdefault("k6", (a, kw))
+        return real_rs(*a, **kw)
+    ops.quantized_query_topk, quantize.rerank_survivors = grab_q, grab_rs
+    try:
+        sv.index.query(torch.as_tensor(q, device="cuda"), 10, 4)
+    finally:
+        ops.quantized_query_topk, quantize.rerank_survivors = real_q, real_rs
+    torch.cuda.synchronize()
+    return captured
+
+
 # -- phase 5: timings ---------------------------------------------------------
 
 
-def timings(gen, k2_inputs, errs):
+def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
     import torch
     from repro_torch.embedders.basis import cheb_kernel_constants
-    from repro_torch.kernels import dct_mm, fused_query, hash_mm, merge, ref
+    from repro_torch.kernels import (dct_mm, fused_query, hash_mm, merge,
+                                     quantized_query, ref, rerank,
+                                     simhash_pack)
 
     rec = {}
     # K1 at a 32-row query micro-batch: X (32, 64), A (64, 32)
@@ -419,6 +607,91 @@ def timings(gen, k2_inputs, errs):
         bytes=8 * rows * pm + 8 * rows * kk,
         ops=cmp_ops)
 
+    # K5 at one sealed int8 segment of a 128-row micro-batch, real
+    # candidates, k = kq = 40
+    (qq, codes, scale, qids, kq), kw = k5_inputs
+    nq, c = qids.shape
+    qval = (qids >= 0) & (qids < codes.shape[0])
+    rows_needed = int(torch.unique(qids[qval]).numel())
+    n_valid = int(qval.sum())
+
+    def lib_quantized():
+        qc = torch.round(qq / scale)
+        rows = codes[qids.clamp(min=0).long()].float()
+        dist = torch.linalg.vector_norm(rows - qc[:, None, :], dim=-1)
+        dist = torch.where(qids < 0, torch.inf, dist)
+        dv, iv = torch.topk(dist, kq, largest=False)
+        return dv * scale, iv
+    rec["quantized_query"] = dict(
+        shape=f"q ({nq}, 64), codes {tuple(codes.shape)} {codes.dtype}, ids "
+              f"({nq}, {c}), k={kq}; {n_valid} valid candidates, "
+              f"{rows_needed} rows",
+        ms=time_ms(lambda: quantized_query.quantized_query_topk(
+            qq, codes, scale, qids, kq, **kw)),
+        host_ms=host_ms(lambda: quantized_query.quantized_query_topk(
+            qq, codes, scale, qids, kq, **kw)),
+        plain_ms=time_ms(lambda: ref.quantized_topk_ref(qq, codes, scale,
+                                                        qids, kq, **kw)),
+        library_ms=time_ms(lib_quantized),
+        bytes=4 * (nq * 64 + nq * c + 1 + 2 * nq * kq)
+        + rows_needed * 64 * codes.element_size(),
+        ops=3 * 64 * n_valid)
+
+    # K6 at the survivor rescore of that 128-row batch: (128, 40, 64)
+    (rq, rrows, rgids, _), rkw = k6_inputs
+    rq = rq.float().contiguous()
+    rrows = rrows.float().contiguous()
+    rgids = rgids.to(torch.int32).contiguous()
+    b, c = rgids.shape
+    r_valid = int((rgids >= 0).sum())
+
+    def lib_rerank():
+        dist = torch.linalg.vector_norm(rrows - rq[:, None, :], dim=-1)
+        return torch.where(rgids < 0, torch.inf, dist)
+    rec["rerank"] = dict(
+        shape=f"q ({b}, 64), emb ({b}, {c}, 64), ids ({b}, {c}); "
+              f"{r_valid} valid",
+        ms=time_ms(lambda: rerank.rerank_distances(rq, rrows, rgids)),
+        host_ms=host_ms(lambda: rerank.rerank_distances(rq, rrows, rgids)),
+        plain_ms=time_ms(lambda: ref.rerank_ref(rq, rrows, rgids)),
+        library_ms=time_ms(lib_rerank),
+        bytes=4 * (b * 64 + r_valid * 64 + b * c + b * c),
+        ops=3 * 64 * r_valid)
+
+    # K7 at bench_hash_throughput's shape: X (512, 64) @ A (64, 1024)
+    m, n, k = SIMHASH_BATCH, 64, SIMHASH_BITS
+    x = torch.randn((m, n), generator=gen).cuda()
+    a = torch.randn((n, k), generator=gen).cuda()
+    shifts = torch.arange(32, device="cuda", dtype=torch.int64)
+
+    def lib_simhash():
+        bits_ = (torch.matmul(x, a) >= 0).to(torch.int64)
+        words = (bits_.view(m, k // 32, 32) << shifts).sum(-1)
+        return (words & 0xFFFFFFFF).to(torch.int32)
+    rec["simhash_pack"] = dict(
+        shape=f"X ({m}, {n}) @ A ({n}, {k}) -> ({m}, {k // 32}) words",
+        ms=time_ms(lambda: simhash_pack.simhash_pack(x, a)),
+        host_ms=host_ms(lambda: simhash_pack.simhash_pack(x, a)),
+        plain_ms=time_ms(lambda: ref.simhash_pack_ref(x, a)),
+        library_ms=time_ms(lib_simhash),
+        bytes=4 * (m * n + n * k + m * k // 32),
+        ops=2 * m * n * k)
+
+    # K3 at the int8 fan-in, logged beside the table: 258 segments x kq =
+    # 40 for a 128-row micro-batch, P = 16,384 (128 KB of shared memory)
+    rows, runs, kq8 = 128, 258, 40
+    pm = runs * kq8
+    d8 = torch.rand((rows, runs, kq8), generator=gen).sort(dim=-1).values
+    d8 = d8.reshape(rows, pm).cuda()
+    i8 = torch.randperm(4 * pm, generator=gen)[:pm].to(torch.int32)
+    i8 = i8.repeat(rows, 1).cuda()
+    log("  timing " + json.dumps({
+        "name": "merge (int8 fan-in)",
+        "shape": f"({rows}, {pm}) pairs -> P=16384, top {kq8}",
+        "ms": time_ms(lambda: merge.sort_pairs_kernel(d8, i8, n_out=kq8)),
+        "host_ms": host_ms(lambda: merge.sort_pairs_kernel(d8, i8,
+                                                           n_out=kq8))}))
+
     for name, t in rec.items():
         bms, by = bound_ms(t["bytes"], t["ops"])
         t.update(bound_ms=bms, bound_by=by, max_abs_err=errs[name])
@@ -426,7 +699,7 @@ def timings(gen, k2_inputs, errs):
     return rec
 
 
-# -- phase 6: where a micro-batch's time goes ----------------------------------
+# -- phases 6-7: where a micro-batch's time goes -----------------------------
 
 
 def profile_batches(sv, n_batches=2, rows=32):
@@ -441,12 +714,25 @@ def profile_batches(sv, n_batches=2, rows=32):
     rng = np.random.default_rng(5)
     q = sv.embed(sample_fvals(rng, sv.nodes(), rows)).cpu().numpy()
     sv.index.query(q, 10, 4)[0].cpu()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_batches):
-            sv.index.query(q, 10, 4)[0].cpu()
-        wall = (time.perf_counter() - t0) / n_batches
+    # the int8 tier's host survivor gather, timed on the host clock
+    gather_s = []
+    real_gather = sv.index._survivor_rows
+
+    def timed_gather(g_np):
+        t = time.perf_counter()
+        out = real_gather(g_np)
+        gather_s.append(time.perf_counter() - t)
+        return out
+    sv.index._survivor_rows = timed_gather
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_batches):
+                sv.index.query(q, 10, 4)[0].cpu()
+            wall = (time.perf_counter() - t0) / n_batches
+    finally:
+        del sv.index._survivor_rows
     path = ROOT / "build" / "main_batch_trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
@@ -462,11 +748,101 @@ def profile_batches(sv, n_batches=2, rows=32):
            "wall_ms": wall * 1e3,
            "kernel_ms": busy_us / 1e3 if kern else "not measured",
            "kernels_per_batch": len(kern) / n_batches,
+           "survivor_gather_ms_per_batch": (sum(gather_s) * 1e3 / n_batches
+                                            if gather_s else None),
            "busy_share": busy_us / 1e6 / wall if kern else "not measured",
            "top_kernels_ms_per_batch": {k: v / 1e3 / n_batches
                                         for k, v in top}}
     log("  profile " + json.dumps(res))
     return res
+
+
+# -- phases 6-7: the paths ---------------------------------------------------
+
+
+def drive(fn, card, smi, path, what):
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after; raise unless each kernel of ``path`` launched."""
+    import torch
+    from repro_torch.kernels import dispatch
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launches)
+    if isinstance(out, dict) and "qps" in out:
+        log(f"  [{card}, {smi.split(',')[-1].strip()}] " + json.dumps(
+            {k: out[k] for k in (
+                "ingest_rows_per_s", "qps", "p50_ms", "p95_ms",
+                "recall_at_k", "self_hit_rate", "held_frac", "n_segments",
+                "n_live", "store_bytes_per_item", "rerank_survivor_frac",
+                "max_memory_allocated", "unique_shapes")}))
+    log(f"  launches on the {what}: " + json.dumps(counts))
+    missing = [k for k in path if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what} never launched {missing}")
+    return counts, out
+
+
+def check_report(report, tier):
+    if report["n_segments"] < MAIN_ITEMS // 1024 + 1:
+        raise AssertionError(f"{tier}: expected >= {MAIN_ITEMS // 1024} "
+                             f"sealed segments + the delta, got "
+                             f"{report['n_segments']}")
+    if tier == "int8" and report["n_segments"] > INT8_MAX_SEGMENTS:
+        raise AssertionError(f"int8: {report['n_segments']} segments; K3's "
+                             f"pool holds {INT8_MAX_SEGMENTS} x kq = 40")
+    if report["self_hit_rate"] < 0.95:
+        raise AssertionError(f"{tier}: self-hit rate "
+                             f"{report['self_hit_rate']}")
+    if not 0.0 <= report["recall_at_k"] <= 1.0:
+        raise AssertionError(f"{tier}: recall {report['recall_at_k']}")
+
+
+def compare_tiers(sv32, sv8, report, report8, n_probe=64, k=10):
+    """Both tenants hold the same items (one seed); the same 64 probes
+    through each: recall@10 of the int8 answer against the fp32 answer,
+    and the sealed store's bytes per item."""
+    from repro_torch.launch.serve import sample_fvals
+    rng = np.random.default_rng(2024)
+    probes = sv32.embed(sample_fvals(rng, sv32.nodes(), n_probe)).cpu()
+    probes = probes.numpy()
+    g32, _ = sv32.query(probes, k, 4)
+    g8, _ = sv8.query(probes, k, 4)
+    hits = [len(set(a[a >= 0]) & set(b[b >= 0])) / max(1, (b >= 0).sum())
+            for a, b in zip(g8, g32)]
+    recall = float(np.mean(hits))
+    ratio = report8["store_bytes_per_item"] / report["store_bytes_per_item"]
+    log("  tiers " + json.dumps({
+        "int8_recall_at_10_vs_fp32": recall,
+        "store_bytes_per_item_fp32": report["store_bytes_per_item"],
+        "store_bytes_per_item_int8": report8["store_bytes_per_item"],
+        "store_ratio": ratio, "probes": n_probe}))
+    if ratio > 1.0 / 3.0:
+        raise AssertionError(f"int8 sealed store is {ratio:.3f} of fp32's")
+    if recall < 0.98:
+        raise AssertionError(f"int8 recall@10 vs fp32 {recall:.4f} < 0.98")
+
+
+def simhash_path(sv, batch=SIMHASH_BATCH, bits_=SIMHASH_BITS):
+    """ops.simhash_signature (the entry point bench_hash_throughput calls)
+    over every live item of the tenant, in 512-row batches, 1024 bits."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    emb, _ = sv.index.live_items()
+    a = torch.randn((emb.shape[1], bits_),
+                    generator=torch.Generator().manual_seed(7)).cuda()
+    sigs = [ops.simhash_signature(emb[s:s + batch].contiguous(), a)
+            for s in range(0, emb.shape[0], batch)]
+    sig = torch.cat(sigs)
+    want = ref.simhash_pack_ref(emb[:batch], a)
+    near = ((emb[:batch].double() @ a.double()).abs() < 1e-5).any()
+    if not (torch.equal(sig[:batch], want) or bool(near)):
+        raise AssertionError("simhash path: first batch differs from the "
+                             "plain version")
+    log(f"  simhash path: {emb.shape[0]} items -> {tuple(sig.shape)} words "
+        f"in {len(sigs)} launches")
+    return sig
 
 
 # -- main ---------------------------------------------------------------------
@@ -486,12 +862,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/6] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/7] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     spent = _build.build()
-    log(f"[2/6] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/7] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -499,11 +875,13 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(0)
-    log("[3/6] kernel checks against the plain versions on the card: "
+    log("[3/7] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4; dct_mm rtol 1e-5 atol 1e-5; "
         "fused_query distances rtol 1e-5 atol 1e-6 and ids equal at "
-        "distinct distances; merge bit-identical")
+        "distinct distances; merge bit-identical; quantized_query int8 at "
+        "p in {1, 2} bit-identical, else as fused_query; rerank rtol 1e-5 "
+        "atol 1e-6; simhash_pack bits equal where |proj| >= 1e-5")
     errs = {}
     errs["hash_mm"] = max(check_hash_mm(gen, m, 64, 32)
                           for m in (8, 32, 128, 256))
@@ -515,6 +893,7 @@ def main() -> int:
     check_dct_mm(gen, 130, 33)
     errs["fused_query"] = check_fused_query(gen, 32, 64, 1024, 1024, 10)
     check_fused_query(gen, 128, 64, 1024, 1024, 10)
+    check_fused_query(gen, 128, 64, 1024, 1024, 40)
     check_fused_query(gen, 5, 50, 300, 200, 10, invalid_rows=2)
     check_fused_query(gen, 7, 64, 1024, 1024, 1)
     check_fused_query(gen, 3, 64, 1024, 1024, 128)
@@ -523,46 +902,64 @@ def main() -> int:
     check_fused_query(gen, 8, 40, 500, 256, 10, p=1.5)
     errs["merge"] = check_merge(gen, 32, 2570, n_out=10)
     check_merge(gen, 32, 2570)
+    check_merge(gen, 128, 10320, n_out=40)     # the int8 fan-in, P 16,384
+    check_merge(gen, 128, 40, n_out=10)        # the survivor rescore's sort
     check_merge(gen, 3, 5)
     check_merge(gen, 1, 1)
     check_merge(gen, 9, 100)
     check_merge(gen, 4, 4096)
     check_merge(gen, 4, 1024, sorted_run=16, runs=16)
+    i8, bf = torch.int8, torch.bfloat16
+    errs["quantized_query"] = max(
+        check_quantized_query(gen, 128, 1024, 1024, 40, i8, p=p)
+        for p in (2.0, 1.0))
+    for dt in (i8, bf):
+        for p in (2.0, 1.0, 1.5):
+            for k in (1, 40, 128):
+                check_quantized_query(gen, 16, 1024, 1024, k, dt, p=p,
+                                      invalid_rows=2)
+        check_quantized_query(gen, 8, 1024, 512, 10, dt, valid_items=600)
+        check_quantized_query(gen, 5, 300, 200, 10, dt, n=50)
+    errs["rerank"] = check_rerank(gen, 128, 40)
+    check_rerank(gen, 128, 40, p=1.0)
+    check_rerank(gen, 9, 200, n=100, p=1.5)
+    check_rerank(gen, 1, 1, n=3)
+    errs["simhash_pack"] = check_simhash(gen, SIMHASH_BATCH, 64,
+                                         SIMHASH_BITS)
+    check_simhash(gen, 130, 64, 96)
+    check_simhash(gen, 8, 16, 32)
+    check_simhash(gen, 37, 100, 256)
 
-    log("[4/6] CPU (plain versions) vs card (kernels) parity")
+    log("[4/7] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
+    captured = int8_parity_run()
 
-    log("[5/6] timings (median of CUDA events over "
+    log("[5/7] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
-    rec = timings(gen, k2_inputs, errs)
+    rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs)
 
-    log(f"[6/6] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/7] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
-    torch.cuda.synchronize()
-    dispatch.reset_launches()
-    report = serve.run(registry=registry, n_items=MAIN_ITEMS,
-                       steps=MAIN_STEPS, log=log)
-    torch.cuda.synchronize()
-    counts = dict(dispatch.launches)
-    log(f"  [{card}, {smi.split(',')[-1].strip()}] " + json.dumps(
-        {k: report[k] for k in ("ingest_rows_per_s", "qps", "p50_ms",
-                                "p95_ms", "recall_at_k", "self_hit_rate",
-                                "held_frac", "n_segments", "n_live",
-                                "max_memory_allocated", "unique_shapes")}))
-    log("  launches on the main path: " + json.dumps(counts))
+    counts, report = drive(lambda: serve.run(
+        registry=registry, n_items=MAIN_ITEMS, steps=MAIN_STEPS, log=log),
+        card, smi, FP32_PATH, "main path")
     profile_batches(registry.get("l2-basis"))
-    missing = [k for k in dispatch.KERNELS if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    if report["n_segments"] < MAIN_ITEMS // 1024 + 1:
-        raise AssertionError(f"expected >= {MAIN_ITEMS // 1024} sealed "
-                             f"segments + the delta, got "
-                             f"{report['n_segments']}")
-    if report["self_hit_rate"] < 0.95:
-        raise AssertionError(f"self-hit rate {report['self_hit_rate']}")
-    if not 0.0 <= report["recall_at_k"] <= 1.0:
-        raise AssertionError(f"recall {report['recall_at_k']}")
+    check_report(report, "fp32")
+
+    log(f"[7/7] int8 path: repro_torch.launch.serve --precision int8, "
+        f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
+        "tenant; then the simhash path")
+    reg8 = ServableRegistry(device="cuda")
+    counts8, report8 = drive(lambda: serve.run(
+        registry=reg8, n_items=MAIN_ITEMS, steps=MAIN_STEPS,
+        precision="int8", log=log), card, smi, INT8_PATH, "int8 path")
+    profile_batches(reg8.get("l2-basis"))
+    check_report(report8, "int8")
+    compare_tiers(registry.get("l2-basis"), reg8.get("l2-basis"), report,
+                  report8)
+    counts7, _ = drive(lambda: simhash_path(reg8.get("l2-basis")), card, smi,
+                       ("simhash_pack",), "simhash path")
 
     kernels = []
     for name in dispatch.KERNELS:
@@ -570,7 +967,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": counts[name],
+            "replaces": REPLACES[name],
+            "launches": counts[name] + counts8[name] + counts7[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -1,8 +1,10 @@
 """Carry state into the port from numpy arrays.
 
-Tests hand the JAX package's family and built tables to the port with
-``np.asarray`` of each leaf, so that both packages compute the same thing.
-Nothing here imports jax: the arrays arrive as numpy.
+Tests hand the JAX package's family, built tables and sealed segments to
+the port with ``np.asarray`` of each leaf, so that both packages compute the
+same thing.  Nothing here imports jax: the arrays arrive as numpy.  A bf16
+array arrives as numpy's ``bfloat16`` (the ml_dtypes type), which torch
+cannot take; it crosses as its uint16 bits and is viewed as bf16 again.
 """
 
 from __future__ import annotations
@@ -12,10 +14,24 @@ import torch
 
 from .core.index import Family, LSHIndexState
 from .kernels import dispatch
+from .serve.segments import Segment
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=dev).to(dtype).contiguous()
+
+
+def rows_from_numpy(db, device=None) -> torch.Tensor:
+    """Stored rows in their own dtype: int8 codes, bf16 codes (via their
+    uint16 bits) or fp32 embeddings."""
+    dev = dispatch.resolve_device(device)
+    a = np.asarray(db)
+    if a.dtype == np.int8:
+        return _tensor(a, torch.int8, dev)
+    if a.dtype.name == "bfloat16":
+        bits = torch.as_tensor(a.view(np.uint16).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(dev).contiguous()
+    return _tensor(a, torch.float32, dev)
 
 
 def family_from_numpy(alpha, b, mix, device=None) -> Family:
@@ -29,13 +45,32 @@ def family_from_numpy(alpha, b, mix, device=None) -> Family:
 
 def state_from_numpy(alpha, b, mix, table, counts, db, device=None
                      ) -> LSHIndexState:
-    """A built index's leaves -> the port's ``LSHIndexState``."""
+    """A built index's leaves -> the port's ``LSHIndexState``.  ``db`` keeps
+    its dtype: fp32 rows, or a quantized segment's int8 or bf16 codes."""
     dev = dispatch.resolve_device(device)
     a, bb, m = family_from_numpy(alpha, b, mix, device=dev)
     return LSHIndexState(alpha=a, b=bb, mix=m,
                          table=_tensor(table, torch.int32, dev),
                          counts=_tensor(counts, torch.int32, dev),
-                         db=_tensor(db, torch.float32, dev))
+                         db=rows_from_numpy(db, device=dev))
+
+
+def quantized_segment_from_numpy(codes, scale, pool, *, family, table, counts,
+                                 gids, live, n_items: int, device=None
+                                 ) -> Segment:
+    """A sealed int8/bf16 segment of the JAX package -> the port's
+    ``Segment``: ``codes`` (capacity, N) int8 or bf16, ``scale`` () f32,
+    ``pool`` (capacity, N) f32 survivor rows, ``family`` (alpha, b, mix),
+    the bucket ``table``/``counts``, ``gids`` (capacity,) int32 and ``live``
+    (capacity,) bool."""
+    dev = dispatch.resolve_device(device)
+    live_t = _tensor(live, torch.bool, dev)
+    return Segment(
+        state=state_from_numpy(*family, table, counts, codes, device=dev),
+        gids=_tensor(gids, torch.int32, dev), live=live_t,
+        n_items=int(n_items), n_live=int(live_t[:int(n_items)].sum()),
+        sealed=True, scale=_tensor(scale, torch.float32, dev).reshape(()),
+        pool=np.array(pool, dtype=np.float32))
 
 
 def basis_constants_from_numpy(pre, mat, scale, device=None):

@@ -6,7 +6,8 @@ fixed-capacity slot arrays ``table[l, b, s] -> item id`` (-1 empty) filled
 by sort + segmented rank; multi-probe adds the best single-coordinate
 perturbations ranked by distance to the bucket boundary; a query gathers
 the probed slots, drops duplicates, and re-ranks through K2
-``fused_query``.
+``fused_query`` -- or, on a quantized (int8/bf16) segment, scores the
+candidates in code space through K5 ``quantized_query``.
 
 Hashing is not switchable: build and query hash through one
 implementation per device (the kernel on the card, the plain version on
@@ -268,6 +269,26 @@ def gather_stage(table: torch.Tensor, buckets: torch.Tensor,
     return cands
 
 
+def _candidate_ids(state: LSHIndexState, cfg: IndexConfig, q: torch.Tensor,
+                   n_probes: int, live_mask: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """hash -> probe -> gather -> dedup (+ tombstone filter): the candidate
+    pipeline every tier shares.  (nq, C) int32, -1 = no candidate."""
+    hashes, proj = hash_stage(state.alpha, state.b, cfg, q)
+    buckets = probe_stage(state.mix, cfg, hashes, proj, n_probes)
+    cands = gather_stage(state.table, buckets, cfg, state.db.shape[0])
+    if live_mask is not None:
+        cands = _live_filter(cands, live_mask)
+    return cands.contiguous()
+
+
+def _to_gids(ids: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+    """Local slots -> global ids through ``gids`` (n_items_cap,); -1 stays."""
+    return torch.where(ids >= 0,
+                       gids[ids.clamp(0, gids.shape[0] - 1).to(torch.int64)],
+                       -1)
+
+
 def query_index(state: LSHIndexState, cfg: IndexConfig, queries, k: int,
                 n_probes: int = 1, valid_items: Optional[int] = None,
                 live_mask: Optional[torch.Tensor] = None
@@ -278,13 +299,9 @@ def query_index(state: LSHIndexState, cfg: IndexConfig, queries, k: int,
     ``live_mask`` (n_items_cap,) bool drops tombstoned rows.  Returns
     ascending (ids (nq, k) int32, dists (nq, k) f32), (-1, +inf) padded."""
     q = _as_rows(state, queries)
-    hashes, proj = hash_stage(state.alpha, state.b, cfg, q)
-    buckets = probe_stage(state.mix, cfg, hashes, proj, n_probes)
-    cands = gather_stage(state.table, buckets, cfg, state.db.shape[0])
-    if live_mask is not None:
-        cands = _live_filter(cands, live_mask)
-    dist, ids = ops.fused_query_topk(q, state.db, cands.contiguous(), k,
-                                     p=cfg.p, valid_items=valid_items)
+    cands = _candidate_ids(state, cfg, q, n_probes, live_mask)
+    dist, ids = ops.fused_query_topk(q, state.db, cands, k, p=cfg.p,
+                                     valid_items=valid_items)
     return ids, dist
 
 
@@ -296,9 +313,39 @@ def query_index_gids(state: LSHIndexState, cfg: IndexConfig, queries,
     ``gids`` (n_items_cap,) int32.  Returns (gids (nq, k), dists (nq, k))."""
     ids, dist = query_index(state, cfg, queries, k, n_probes=n_probes,
                             live_mask=live_mask)
-    g = torch.where(ids >= 0,
-                    gids[ids.clamp(0, gids.shape[0] - 1).to(torch.int64)], -1)
-    return g, dist
+    return _to_gids(ids, gids), dist
+
+
+def query_index_quantized(state: LSHIndexState, cfg: IndexConfig, queries,
+                          k: int, scale: torch.Tensor, n_probes: int = 1,
+                          valid_items: Optional[int] = None,
+                          live_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`query_index` over a quantized segment (int8/bf16
+    ``state.db``, dequant ``scale`` () f32).
+
+    The candidate pipeline is the fp32 one -- hashing reads only the
+    family, which stays fp32 at every tier -- and only the scoring tail
+    switches to code space (K5).  Distances are in the fp32 metric,
+    approximate within O(scale); serve callers rescore survivors exactly
+    (``kernels.quantize.rerank_survivors``)."""
+    q = _as_rows(state, queries)
+    cands = _candidate_ids(state, cfg, q, n_probes, live_mask)
+    dist, ids = ops.quantized_query_topk(q, state.db, scale, cands, k,
+                                         p=cfg.p, valid_items=valid_items)
+    return ids, dist
+
+
+def query_index_gids_quantized(state: LSHIndexState, cfg: IndexConfig,
+                               queries, k: int, gids: torch.Tensor,
+                               scale: torch.Tensor, n_probes: int = 1,
+                               live_mask: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`query_index_quantized` with local slots translated to global
+    ids -- the quantized analogue of :func:`query_index_gids`."""
+    ids, dist = query_index_quantized(state, cfg, queries, k, scale,
+                                      n_probes=n_probes, live_mask=live_mask)
+    return _to_gids(ids, gids), dist
 
 
 def brute_force_topk(db, queries, k: int, p: float = 2.0,

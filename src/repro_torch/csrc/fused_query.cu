@@ -15,21 +15,13 @@
 // and a shuffle reduction finishes the distance (p = 2, p = 1, general p).
 // Slots with id < 0 or id >= valid score +inf.  The C distances and ids stay
 // in shared memory (C * 8 bytes), and k rounds of block-wide argmin pick
-// the winners, the lower slot winning ties -- the order a stable ascending
-// sort of the distances gives, which is lax.top_k's tie order.
-#include <climits>
-
-#include "common.cuh"
+// the winners, the lower slot winning ties (topk.cuh, shared with K5).
+#include "topk.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// (distance, slot) lexicographic min: the lower slot wins ties.
-__device__ __forceinline__ bool better(float d, int s, float bd, int bs) {
-  return d < bd || (d == bd && s < bs);
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_query_kernel(const float* __restrict__ q, const float* __restrict__ db,
@@ -83,48 +75,8 @@ fused_query_kernel(const float* __restrict__ q, const float* __restrict__ db,
   }
   __syncthreads();
 
-  for (int t = 0; t < k; ++t) {
-    float best = INFINITY;
-    int slot = INT_MAX;
-    for (int s = threadIdx.x; s < c; s += kThreads) {
-      const float v = sd[s];
-      if (better(v, s, best, slot)) {
-        best = v;
-        slot = s;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int os = __shfl_xor_sync(0xffffffffu, slot, off);
-      if (better(ob, os, best, slot)) {
-        best = ob;
-        slot = os;
-      }
-    }
-    if (lane == 0) {
-      wbest[warp] = best;
-      wslot[warp] = slot;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      best = wbest[0];
-      slot = wslot[0];
-      for (int w = 1; w < kWarps; ++w) {
-        if (better(wbest[w], wslot[w], best, slot)) {
-          best = wbest[w];
-          slot = wslot[w];
-        }
-      }
-      const size_t at = static_cast<size_t>(row) * k + t;
-      out_d[at] = best;
-      out_i[at] = isinf(best) ? -1 : si[slot];
-      // A taken slot re-enters as +inf: once only +inf is left every
-      // further pick reports (+inf, -1) whichever slot wins.
-      sd[slot] = INFINITY;
-    }
-    __syncthreads();
-  }
+  repro_torch::block_select_topk<kThreads>(sd, si, c, k, 1.0f, wbest, wslot,
+                                          out_d, out_i, row);
 }
 
 }  // namespace

@@ -1,5 +1,8 @@
-// Tiled fp32 SIMT GEMM skeleton shared by K1 (hash_mm.cu) and K4
-// (dct_mm.cu): C[i, j] = epilogue(i, j, sum_t A[i, t] * B[t, j]).
+// Tiled fp32 SIMT GEMM skeleton shared by K1 (hash_mm.cu), K4 (dct_mm.cu)
+// and K7 (simhash_pack.cu): C[i, j] = epilogue(i, j, sum_t A[i, t] * B[t, j]).
+// The 32 lanes of a warp hold 32 consecutive columns of one row, and a warp
+// calls the epilogue together or not at all when n % 32 == 0 (K7 relies on
+// it for a warp-wide ballot).
 //
 // Every output element is one thread's sequential fmaf chain over
 // t = 0 .. K-1 in order (no split-K, no tensor cores, no TF32), so a row's

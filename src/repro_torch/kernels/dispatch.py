@@ -22,7 +22,13 @@ from collections import Counter
 
 import torch
 
-KERNELS = ("hash_mm", "dct_mm", "fused_query", "merge")
+KERNELS = ("hash_mm", "dct_mm", "fused_query", "merge", "quantized_query",
+           "rerank", "simhash_pack")
+
+# Sealed-segment storage precision tiers (``repro/kernels/dispatch.py:41``).
+# The JAX package's $REPRO_STORE_DTYPE override is not ported: the port's
+# dispatch reads no environment.
+STORE_DTYPES = ("fp32", "bf16", "int8")
 
 launches: Counter = Counter({name: 0 for name in KERNELS})
 

@@ -1,8 +1,9 @@
 """The ops the index and embedders call, routed by where their input lies.
 
 A CUDA tensor goes to the hand-written kernel (:mod:`.hash_mm`,
-:mod:`.dct_mm`, :mod:`.fused_query`, :mod:`.merge`), a CPU tensor to the
-kernel's plain version in :mod:`.ref` -- see :mod:`.dispatch`.  Shapes
+:mod:`.dct_mm`, :mod:`.fused_query`, :mod:`.merge`, :mod:`.quantized_query`,
+:mod:`.rerank`, :mod:`.simhash_pack`), a CPU tensor to the kernel's plain
+version in :mod:`.ref` -- see :mod:`.dispatch`.  Shapes
 follow the JAX package's ``repro/kernels/ops.py``: ``B``/``nq`` rows, ``N``
 embedding dims, ``L*K`` hashes, ``C`` candidates per query, ``k`` results.
 """
@@ -16,6 +17,9 @@ from .dct_mm import dct_mm
 from .fused_query import fused_query_topk as _fused_query_kernel
 from .hash_mm import hash_mm
 from .merge import sort_pairs_kernel
+from .quantized_query import quantized_query_topk as _quantized_query_kernel
+from .rerank import rerank_distances
+from .simhash_pack import simhash_pack
 
 
 def pstable_hash_proj(x, alpha, b, r: float):
@@ -46,6 +50,42 @@ def fused_query_topk(q, db, ids, k: int, p: float = 2.0, valid_items=None):
                                    valid_items=valid_items)
     return ref.fused_query_topk_ref(q, db, ids, k, p=p,
                                     valid_items=valid_items)
+
+
+def quantized_query_topk(q, codes, scale, ids, k: int, p: float = 2.0,
+                         valid_items=None):
+    """:func:`fused_query_topk` over a quantized segment: codes (M, N) int8
+    or bf16 with one dequant ``scale`` () f32.  The queries are mapped into
+    code space, candidates scored there with each code widened in
+    registers, and the k distances scaled into the fp32 metric (approximate
+    within O(scale); the serve layer rescores survivors exactly).  On the
+    card k must be <= 128."""
+    if dispatch.use_kernel(q):
+        return _quantized_query_kernel(q, codes, scale, ids, k, p=p,
+                                       valid_items=valid_items)
+    return ref.quantized_topk_ref(q, codes, scale, ids, k, p=p,
+                                  valid_items=valid_items)
+
+
+def candidate_distances(q, emb, ids, p: float = 2.0):
+    """Masked L^p re-rank distances against pre-gathered rows.
+
+    q (B, N) f32; emb (B, C, N) f32 candidate rows (garbage where the id is
+    < 0); ids (B, C) int32, -1 = empty slot.  Returns (B, C) f32, +inf where
+    ids is -1.  (The JAX docstring gives ``emb`` as (n_items, N); its code
+    and tests pass (B, C, N), which the port follows.)"""
+    if dispatch.use_kernel(q):
+        return rerank_distances(q, emb, ids, p=p)
+    return ref.rerank_ref(q, emb, ids, p)
+
+
+def simhash_signature(x, alpha):
+    """Sign-random-projection signature, bit-packed: x (B, N) f32, alpha
+    (N, K) with K a multiple of 32 -> (B, K/32) int32, bit j of word w set
+    where ``(x @ alpha)[:, 32w+j] >= 0``."""
+    if dispatch.use_kernel(x):
+        return simhash_pack(x, alpha)
+    return ref.simhash_pack_ref(x, alpha)
 
 
 def _pad_to_k(dists, ids, k: int):

@@ -35,7 +35,7 @@ def dct_mm_ref(fvals: torch.Tensor, dct_t: torch.Tensor,
     return (fvals.float() @ dct_t.float()) * scale.float()
 
 
-# -- K2 fused_query -----------------------------------------------------------
+# -- K2 fused_query, K6 rerank ------------------------------------------------
 
 
 def rerank_ref(q: torch.Tensor, emb: torch.Tensor, ids: torch.Tensor,
@@ -67,6 +67,52 @@ def fused_query_topk_ref(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
     dist, idx = dist[:, :k], idx[:, :k]
     out_ids = torch.gather(ids.to(torch.int32), 1, idx)
     return dist, torch.where(torch.isinf(dist), -1, out_ids)
+
+
+# -- K5 quantized_query ------------------------------------------------------
+
+
+def code_query(q: torch.Tensor, codes_dtype: torch.dtype, scale: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Map fp32 queries into a segment's code space: (q_c, post_scale).
+    int8: ``round(q / scale)`` (true division, round half to even); bf16:
+    the queries as they are, post-scale 1."""
+    if codes_dtype == torch.int8:
+        return torch.round(q / scale), scale
+    return q, torch.ones((), dtype=torch.float32, device=q.device)
+
+
+def quantized_topk_ref(q: torch.Tensor, codes: torch.Tensor,
+                       scale: torch.Tensor, ids: torch.Tensor, k: int,
+                       p: float = 2.0, valid_items=None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather int8/bf16 candidate rows, score them in code space, top-k,
+    then scale the k distances into the fp32 metric.
+
+    The JAX oracle (``repro/kernels/quantize.py:110``) scales before its
+    top-k, the Pallas kernel after; this follows the kernel, which selects
+    on the unscaled distances.  The distances are the same multiply either
+    way, and the ids differ only where scaling merges two distances."""
+    qc, post = code_query(q.float(), codes.dtype, scale)
+    dist, out_ids = fused_query_topk_ref(qc, codes, ids, k, p=p,
+                                         valid_items=valid_items)
+    return dist * post, out_ids
+
+
+# -- K7 simhash_pack ----------------------------------------------------------
+
+
+def simhash_pack_ref(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """pack32(x @ alpha >= 0): (B, K) sign bits -> (B, K/32) int32 words,
+    bit j of word w = column 32w+j.  The words are summed in int64 (torch
+    widens an int32 sum) and their low 32 bits reinterpreted as int32, so
+    bit 31 gives a negative word as JAX's wrapping int32 sum does."""
+    bits = (x.float() @ alpha.float() >= 0).to(torch.int64)
+    words = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 32, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    packed = (words << shifts).sum(dim=-1)
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32,
+                       packed).to(torch.int32)
 
 
 # -- K3 merge: the bitonic (distance, id) network -----------------------------

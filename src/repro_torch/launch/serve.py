@@ -3,6 +3,7 @@
     python -m repro_torch.launch.serve                       # on the card
     python -m repro_torch.launch.serve --n-items 262144 --steps 20
     python -m repro_torch.launch.serve --device cpu --n-items 2048 --steps 4
+    python -m repro_torch.launch.serve --precision int8      # int8 tier
 
 The port of the scripted demo loop of ``repro/launch/serve.py`` for the
 ``l2-basis`` tenant (p = 2, Chebyshev-basis embedding, Eq. 3).  It first
@@ -12,8 +13,9 @@ batch, submits several small query requests (perturbations of fresh
 functions) through the micro-batcher, and tombstones a slice of the oldest
 items.  It ends with a report: ingest rate, QPS and latency percentiles,
 recall@k against exact brute force on a probe set, the self-hit rate of
-stored items queried exactly, segment occupancy, device memory, and the
-kernels' launch counts.
+stored items queried exactly, segment occupancy, the sealed store's bytes
+per item, device memory, and the kernels' launch counts.  ``--precision``
+stores the sealed segments as bf16 or int8 codes (the quantized tier).
 
 Compaction, the other tenants, WAL, snapshots and sharding are not ported
 yet; the defaults keep the JAX demo's shapes.
@@ -33,11 +35,14 @@ from ..serve import ServableRegistry, ServableSpec, recall_proxy
 
 
 def default_spec(n_dims: int = 64, segment_capacity: int = 1024,
-                 max_delay_ms: float = 2.0) -> ServableSpec:
-    """The demo's l2-basis tenant (JAX ``launch/serve.py:81``)."""
+                 max_delay_ms: float = 2.0, precision: str = "fp32"
+                 ) -> ServableSpec:
+    """The demo's l2-basis tenant (JAX ``launch/serve.py:81``) at a storage
+    tier (JAX ``--precision``)."""
     return ServableSpec(name="l2-basis", n_dims=n_dims, p=2.0, r=4.0,
                         embedder="basis", segment_capacity=segment_capacity,
-                        chunk_sizes=(8, 32, 128), max_delay_ms=max_delay_ms)
+                        chunk_sizes=(8, 32, 128), max_delay_ms=max_delay_ms,
+                        precision=precision)
 
 
 def sample_fvals(rng: np.random.Generator, nodes: np.ndarray, n: int
@@ -77,7 +82,7 @@ def run(*, device=None, n_items: int = 0, steps: int = 20,
         delete_frac: float = 0.05, n_dims: int = 64,
         segment_capacity: int = 1024, recall_probe_size: int = 64,
         self_hit_probes: int = 64, fill_batch: int = 8192, seed: int = 0,
-        registry=None, log=print) -> dict:
+        precision: str = "fp32", registry=None, log=print) -> dict:
     """Fill, run the demo loop, and return the report dict.  The tenant
     is registered in ``registry`` (a fresh one on ``device`` by default),
     so a caller that passes its own can keep querying it afterwards."""
@@ -86,7 +91,8 @@ def run(*, device=None, n_items: int = 0, steps: int = 20,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(seed)
-    sv = registry.register(default_spec(n_dims, segment_capacity))
+    sv = registry.register(default_spec(n_dims, segment_capacity,
+                                        precision=precision))
     nodes = sv.nodes()
     inserted: list = []
 
@@ -163,6 +169,9 @@ def run(*, device=None, n_items: int = 0, steps: int = 20,
         "recall_probe_size": recall_probe_size,
         "self_hit_rate": self_hit,
         "held_frac": float(held.float().mean()),
+        "precision": precision,
+        "store_bytes_per_item": rep["store"]["store_bytes_per_item"],
+        "rerank_survivor_frac": rep["store"]["rerank_survivor_frac"],
         "n_segments": rep["occupancy"]["n_segments"],
         "n_live": rep["occupancy"]["n_live"],
         "bucket_overflow_frac": rep["occupancy"]["bucket_overflow_frac"],
@@ -191,6 +200,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--segment-capacity", type=int, default=1024)
     ap.add_argument("--recall-probe-size", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--precision", default="fp32",
+                    choices=dispatch.STORE_DTYPES,
+                    help="sealed-segment storage tier: fp32 is exact, "
+                         "bf16/int8 are bounded-loss with an exact fp32 "
+                         "survivor rerank")
     args = ap.parse_args(argv)
     report = run(device=args.device, n_items=args.n_items, steps=args.steps,
                  insert_batch=args.insert_batch,
@@ -198,7 +212,8 @@ def main(argv=None) -> dict:
                  queries_per_step=args.queries_per_step, k=args.k,
                  n_probes=args.n_probes, delete_frac=args.delete_frac,
                  n_dims=args.n_dims, segment_capacity=args.segment_capacity,
-                 recall_probe_size=args.recall_probe_size, seed=args.seed)
+                 recall_probe_size=args.recall_probe_size, seed=args.seed,
+                 precision=args.precision)
     print("[serve] report:", json.dumps(report))
     print("[serve] OK")
     return report

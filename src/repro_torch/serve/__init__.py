@@ -1,9 +1,10 @@
-"""Streaming serve layer (port of repro/serve, fp32 and single-device)."""
+"""Streaming serve layer (port of repro/serve, single-device)."""
 
 from .batcher import MicroBatcher
 from .registry import Servable, ServableRegistry, ServableSpec
 from .segments import Segment, SegmentedIndex
-from .stats import ServingStats, occupancy_report, recall_proxy
+from .stats import (ServingStats, occupancy_report, recall_proxy,
+                    store_report)
 
 __all__ = [
     "MicroBatcher",
@@ -15,4 +16,5 @@ __all__ = [
     "ServingStats",
     "occupancy_report",
     "recall_proxy",
+    "store_report",
 ]

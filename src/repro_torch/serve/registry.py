@@ -1,10 +1,11 @@
 """Servable registry: named endpoints over segmented indexes.
 
 The port of ``repro/serve/registry.py`` without WAL, checkpoints, meshes or
-maintenance.  A :class:`ServableSpec` is the declarative tenant config; a
-:class:`Servable` is the live endpoint (embedder + segmented index +
-micro-batcher + stats) on one device; the :class:`ServableRegistry` maps
-names to servables.
+maintenance (and without the ``$REPRO_STORE_DTYPE`` override: a tenant's
+precision is its spec's).  A :class:`ServableSpec` is the declarative
+tenant config; a :class:`Servable` is the live endpoint (embedder +
+segmented index + micro-batcher + stats) on one device; the
+:class:`ServableRegistry` maps names to servables.
 
 The hash family comes from ``torch.Generator().manual_seed(spec.seed)``;
 it cannot match the JAX package's ``jax.random.PRNGKey(spec.seed)`` draw,
@@ -24,7 +25,7 @@ from ..embedders import embedder_names, make_embedder
 from ..kernels import dispatch
 from .batcher import MicroBatcher
 from .segments import SegmentedIndex
-from .stats import ServingStats, occupancy_report
+from .stats import ServingStats, occupancy_report, store_report
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +48,20 @@ class ServableSpec:
     chunk_sizes: Tuple[int, ...] = (8, 32, 128)
     max_delay_ms: float = 5.0
     seed: int = 0
+    # sealed-segment storage tier: "fp32" (exact, the default) | "bf16" |
+    # "int8" (bounded-loss, survivor-reranked)
+    precision: str = "fp32"
+    # survivor-pool width m of the quantized query (0 = the default 4k;
+    # ``kernels.quantize.survivor_width``)
+    survivor_k: int = 0
 
     def __post_init__(self):
         if self.embedder not in embedder_names():
             raise ValueError(f"embedder must be one of {embedder_names()}")
+        if self.precision not in dispatch.STORE_DTYPES:
+            raise ValueError(
+                f"precision must be one of {dispatch.STORE_DTYPES}, "
+                f"got {self.precision!r}")
 
     def index_config(self) -> IndexConfig:
         return IndexConfig(n_dims=self.n_dims, n_tables=self.n_tables,
@@ -76,6 +87,8 @@ class Servable:
                                     segment_capacity=spec.segment_capacity,
                                     insert_chunk=spec.insert_chunk,
                                     seed=spec.seed, family=family,
+                                    precision=spec.precision,
+                                    survivor_k=spec.survivor_k,
                                     device=self.device)
         self.batcher = MicroBatcher(self._raw_query,
                                     chunk_sizes=spec.chunk_sizes,
@@ -128,7 +141,8 @@ class Servable:
                 "batcher": {"unique_shapes": self.batcher.unique_shapes(),
                             "n_batches": self.batcher.n_batches,
                             "n_requests": self.batcher.n_requests},
-                "occupancy": occ}
+                "occupancy": occ,
+                "store": store_report(self.index)}
 
 
 class ServableRegistry:

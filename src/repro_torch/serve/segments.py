@@ -1,6 +1,6 @@
 """Segmented mutable LSH index: the streaming lifecycle over core.index.
 
-The port of ``repro/serve/segments.py``, fp32 and unsharded:
+The port of ``repro/serve/segments.py``, unsharded:
 
 * one mutable **delta** segment absorbs inserts through ``insert_items`` in
   fixed ``insert_chunk``-row padded chunks;
@@ -10,7 +10,14 @@ The port of ``repro/serve/segments.py``, fp32 and unsharded:
 * **deletes** are tombstones in a per-segment live mask read at query time;
 * **query** fans out one ``query_index_gids`` per non-empty segment -- each
   re-hashes the batch, as the JAX package's per-segment program does -- and
-  merges the per-segment top-k through ``ops.merge_topk`` (K3 on the card).
+  merges the per-segment top-k through ``ops.merge_topk`` (K3 on the card);
+* the **precision tier** (``precision="bf16"`` or ``"int8"``): a seal
+  encodes the delta's rows into codes + one dequant scale and moves the
+  exact fp32 rows to a host-side survivor pool.  A query scores each sealed
+  segment in code space (K5) for its top ``m`` survivors, merges them
+  (K3), gathers their fp32 rows from the pools and rescores them exactly
+  (K6 + K3).  The delta stays fp32, and an fp32 tenant builds no codes,
+  scales or pools (invariant 10).
 
 Every segment shares ONE hash family, so an item's buckets do not depend
 on which segment holds it, and (with no bucket overflowing) a segmented
@@ -31,7 +38,7 @@ import torch
 
 from ..core import index as lidx
 from ..core.index import IndexConfig, LSHIndexState
-from ..kernels import dispatch, ops
+from ..kernels import dispatch, ops, quantize
 
 
 @dataclasses.dataclass
@@ -44,6 +51,10 @@ class Segment:
     n_items: int = 0            # slots used (tombstoned included)
     n_live: int = 0
     sealed: bool = False
+    # Precision tier (sealed bf16/int8 segments only; None on fp32 tenants
+    # and on the delta, which stays fp32 until sealed):
+    scale: Optional[torch.Tensor] = None   # () f32 dequant scale
+    pool: Optional[np.ndarray] = None      # (capacity, N) f32 survivor pool
 
     @property
     def capacity(self) -> int:
@@ -80,13 +91,24 @@ class SegmentedIndex:
 
     ``family`` (alpha, b, mix) injects a hash family -- how tests hand the
     port and the JAX package the same one; otherwise it is drawn from
-    ``torch.Generator().manual_seed(seed)``.
+    ``torch.Generator().manual_seed(seed)``.  ``precision`` is the sealed
+    segments' storage tier (``dispatch.STORE_DTYPES``); ``survivor_k`` the
+    quantized query's survivor-pool width (0: the default 4k,
+    ``quantize.survivor_width``).
     """
 
     def __init__(self, cfg: IndexConfig, *, segment_capacity: int = 1024,
                  insert_chunk: int = 256, seed: int = 0, family=None,
-                 device=None):
+                 precision: str = "fp32", survivor_k: int = 0, device=None):
+        if precision not in dispatch.STORE_DTYPES:
+            raise ValueError(f"unknown precision {precision!r}; want one "
+                             f"of {dispatch.STORE_DTYPES}")
         self.cfg = cfg
+        self.precision = precision
+        self.survivor_k = int(survivor_k)
+        # share of survivor slots holding a gid in the last quantized query
+        # (the JAX package's rerank_survivor_frac gauge)
+        self.rerank_survivor_frac: Optional[float] = None
         self.device = dispatch.resolve_device(device)
         self.segment_capacity = int(segment_capacity)
         self.insert_chunk = min(int(insert_chunk), self.segment_capacity)
@@ -127,13 +149,48 @@ class SegmentedIndex:
     def n_items(self) -> int:
         return sum(s.n_items for s in self.segments)
 
+    def seal(self) -> None:
+        """Seal the current delta (no-op if empty) and open a fresh one."""
+        with self._lock:
+            self._seal()
+
     def _seal(self) -> None:
-        """Seal the current delta (callers hold the lock) and open a fresh
-        one."""
+        """Apply a seal (callers hold the lock).
+
+        Under a quantized tier this is the encode point, and the encode
+        runs before the sealed flag flips, so a failed encode leaves the
+        delta mutable and untouched.  fp32 tenants never enter it."""
         if self.delta.n_items == 0:
             return
+        if self.precision != "fp32":
+            self._quantize_segment(self.delta)
         self.delta.sealed = True
         self._open_segment()
+
+    def _quantize_segment(self, seg: Segment) -> None:
+        """Encode one about-to-seal segment into the storage tier; its fp32
+        rows move to the host survivor pool."""
+        pool = seg.state.db.cpu().numpy()
+        if not np.isfinite(pool).all():
+            # insert() already refuses NaN/Inf; a non-finite row would
+            # corrupt the segment's shared scale
+            raise ValueError(
+                f"segment holds non-finite embeddings; refusing to "
+                f"quantize to {self.precision} at seal")
+        codes, scale = quantize.encode(seg.state.db, self.precision)
+        seg.state = dataclasses.replace(seg.state, db=codes)
+        seg.scale = scale
+        seg.pool = pool
+
+    def store_bytes_per_item(self) -> Optional[float]:
+        """Sealed-store bytes per live sealed item (the tier's capacity
+        win; the JAX package's store_bytes_per_item gauge).  None before
+        the first seal."""
+        sealed = [s for s in self.segments[:-1] if s.n_items > 0]
+        items = sum(s.n_live for s in sealed)
+        if not items:
+            return None
+        return sum(s.state.db.nbytes for s in sealed) / items
 
     # -- mutation -----------------------------------------------------------
 
@@ -228,15 +285,18 @@ class SegmentedIndex:
             return n
 
     def live_items(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Every live item on the device: (embeddings (n_live, N),
-        gids (n_live,))."""
+        """Every live item on the device: (embeddings (n_live, N) f32,
+        gids (n_live,)).  Quantized segments give their exact fp32 rows from
+        the survivor pool, never decoded codes."""
         with self._lock:
             emb_parts, gid_parts = [], []
             for seg in self.segments:
                 if seg.n_live == 0:
                     continue
                 live = seg.live[:seg.n_items]
-                emb_parts.append(seg.state.db[:seg.n_items][live])
+                db = (seg.state.db if seg.pool is None else torch.as_tensor(
+                    seg.pool, device=self.device))
+                emb_parts.append(db[:seg.n_items][live])
                 gid_parts.append(seg.gids[:seg.n_items][live])
         if not emb_parts:
             return (torch.zeros((0, self.cfg.n_dims), device=self.device),
@@ -254,18 +314,96 @@ class SegmentedIndex:
         does not depend on the segment count)."""
         q = torch.as_tensor(queries, dtype=torch.float32,
                             device=self.device).contiguous()
+        if self.precision != "fp32":
+            return self._query_quantized(q, k, n_probes)
         with self._lock:
             fn = _segment_query_fn(self.cfg, k, n_probes)
             shards = [fn(s.state, q, s.live, s.gids) for s in self.segments
                       if s.n_live > 0]
         if not shards:
-            return (torch.full((q.shape[0], k), -1, dtype=torch.int32,
-                               device=self.device),
-                    torch.full((q.shape[0], k), torch.inf,
-                               device=self.device))
+            return self._no_results(q.shape[0], k)
         g_all = torch.cat([g for g, _ in shards], dim=1)
         d_all = torch.cat([d for _, d in shards], dim=1)
         return _merged(d_all, g_all, k)
+
+    def _no_results(self, nq: int, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(-1, +inf) for every slot: the answer of an empty index."""
+        return (torch.full((nq, k), -1, dtype=torch.int32,
+                           device=self.device),
+                torch.full((nq, k), torch.inf, device=self.device))
+
+    def _query_quantized(self, q: torch.Tensor, k: int, n_probes: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Two-stage quantized query: code-space candidate scoring to a
+        survivor pool of ``m >= k`` per segment, then an exact fp32 rescore
+        of the merged survivors.
+
+        Stage 1 runs :meth:`query`'s fan-out at width ``m =
+        survivor_width(k, survivor_k, L * n_probes * S)``: K5 against each
+        sealed segment's codes, K2 (exact) against the fp32 delta, merged
+        by K3.  Stage 2 gathers the survivors' fp32 rows from the host
+        pools and reranks them under the same (distance, gid) order, so any
+        survivor set holding the true top-k yields the fp32 answer."""
+        kq = quantize.survivor_width(
+            k, self.survivor_k,
+            self.cfg.n_tables * n_probes * self.cfg.bucket_capacity)
+        with self._lock:
+            exact = _segment_query_fn(self.cfg, kq, n_probes)
+            shards = []
+            for seg in self.segments:
+                if seg.n_live == 0:
+                    continue
+                if seg.scale is not None:
+                    shards.append(lidx.query_index_gids_quantized(
+                        seg.state, self.cfg, q, kq, seg.gids, seg.scale,
+                        n_probes=n_probes, live_mask=seg.live))
+                else:       # the delta (and any segment sealed at fp32)
+                    shards.append(exact(seg.state, q, seg.live, seg.gids))
+        if not shards:
+            return self._no_results(q.shape[0], k)
+        g, _ = _merged(torch.cat([d for _, d in shards], dim=1),
+                       torch.cat([g for g, _ in shards], dim=1), kq)
+        g_np = g.cpu().numpy().copy()
+        rows = self._survivor_rows(g_np)
+        g, d = quantize.rerank_survivors(
+            q, torch.as_tensor(rows, device=self.device),
+            torch.as_tensor(g_np, device=self.device), k, p=self.cfg.p)
+        if g_np.size:
+            self.rerank_survivor_frac = float((g_np >= 0).mean())
+        return g, d
+
+    def _survivor_rows(self, g_np: np.ndarray) -> np.ndarray:
+        """Exact fp32 rows for a (nq, m) survivor-gid matrix.
+
+        Sealed quantized segments serve from their host pools; fp32
+        segments (the delta) copy their device ``db`` to the host once per
+        batch.  Gids the locator does not know are set to -1 in place, so
+        the rerank drops them instead of scoring a zero row."""
+        nq, m = g_np.shape
+        rows = np.zeros((nq, m, self.cfg.n_dims), np.float32)
+        with self._lock:
+            host_db: dict = {}
+            for qi in range(nq):
+                for j in range(m):
+                    gid = int(g_np[qi, j])
+                    if gid < 0:
+                        continue
+                    loc = self._locator.get(gid)
+                    if loc is None:
+                        g_np[qi, j] = -1
+                        continue
+                    si, slot = loc
+                    seg = self.segments[si]
+                    if seg.pool is not None:
+                        rows[qi, j] = seg.pool[slot]
+                    else:
+                        db = host_db.get(si)
+                        if db is None:
+                            db = seg.state.db.cpu().numpy()
+                            host_db[si] = db
+                        rows[qi, j] = db[slot]
+        return rows
 
     def occupancy(self) -> List[dict]:
         return [s.occupancy() for s in self.segments]

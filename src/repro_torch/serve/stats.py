@@ -1,7 +1,8 @@
 """Serving statistics: QPS, latency percentiles, recall proxy, occupancy.
 
 The port's own copy of the parts of ``repro/serve/stats.py`` the slice
-uses (metrics-registry publishing and fan-out telemetry left out).
+uses (metrics-registry publishing and fan-out telemetry left out; the
+storage tier's gauges become :func:`store_report`).
 Host-side and lock-guarded: a bounded deque of (t, n) events per rate
 window and a bounded latency reservoir for percentiles.  The recall proxy
 replays a probe set through the segmented index and an exact brute-force
@@ -135,6 +136,14 @@ def recall_proxy(segmented, queries, k: int, n_probes: int = 1) -> float:
     got, _ = segmented.query(q, k, n_probes=n_probes)
     hit = (got[:, :, None] == exact[:, None, :]).any(dim=1)
     return float(hit.float().mean())
+
+
+def store_report(segmented) -> dict:
+    """The storage tier's numbers, which the JAX package publishes as the
+    store_bytes_per_item and rerank_survivor_frac gauges."""
+    return {"precision": segmented.precision,
+            "store_bytes_per_item": segmented.store_bytes_per_item(),
+            "rerank_survivor_frac": segmented.rerank_survivor_frac}
 
 
 def occupancy_report(segmented) -> dict:

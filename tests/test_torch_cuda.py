@@ -10,7 +10,9 @@ need not have.)
 
 Tolerances as in ``chip_smoke.py``: projections allclose and hashes equal
 away from a bucket boundary, embeddings allclose, top-k distances allclose
-with ids equal where distances are distinct, the merge bit-identical.
+with ids equal where distances are distinct, the merge bit-identical, the
+int8 quantized query bit-identical (its sums are exact integers), simhash
+bits equal away from |x @ A| < 1e-5.
 """
 
 import pytest
@@ -87,10 +89,103 @@ def test_merge_kernel_bit_identical(gen, width):
     assert torch.equal(si.cpu(), pi)
 
 
+def _quantized_inputs(gen, nq, n, m, c, dtype):
+    from repro_torch.kernels import quantize
+    db = torch.randn((m, n), generator=gen)
+    db[1::7] = db[::7][:db[1::7].shape[0]]            # duplicate rows: ties
+    codes, scale = quantize.encode(db, "int8" if dtype == torch.int8
+                                   else "bf16")
+    amax = db.abs().max()
+    q = (db[:nq] + 0.1 * torch.randn((nq, n), generator=gen)).clamp(
+        -amax, amax)                      # |q_c| <= 127: sums stay exact
+    ids = torch.randint(-1, m, (nq, c), generator=gen, dtype=torch.int32)
+    ids[0] = -1
+    return q.cuda(), codes.cuda(), scale.cuda(), ids.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("p", [2.0, 1.0, 1.5])
+@pytest.mark.parametrize("k", [1, 40, 128])
+def test_quantized_query_kernel(gen, dtype, p, k):
+    q, codes, scale, ids = _quantized_inputs(gen, 9, 64, 1024, 600, dtype)
+    before = dispatch.launches["quantized_query"]
+    d, i = ops.quantized_query_topk(q, codes, scale, ids, k, p=p,
+                                    valid_items=900)
+    dp, ip = ref.quantized_topk_ref(q, codes, scale, ids, k, p=p,
+                                    valid_items=900)
+    assert dispatch.launches["quantized_query"] == before + 1
+    if dtype == torch.int8 and p in (1.0, 2.0):
+        assert torch.equal(d.view(torch.int32), dp.view(torch.int32))
+        assert torch.equal(i, ip)
+        return
+    fin = torch.isfinite(dp)
+    assert torch.equal(fin, torch.isfinite(d))
+    torch.testing.assert_close(d[fin], dp[fin], rtol=1e-5, atol=1e-6)
+    distinct = torch.ones_like(fin)
+    close = torch.isclose(dp[:, 1:], dp[:, :-1], rtol=1e-5, atol=0)
+    distinct[:, 1:] &= ~close
+    distinct[:, :-1] &= ~close
+    assert torch.equal(i[distinct], ip[distinct])
+
+
+def test_quantized_query_kernel_refuses_k_over_128(gen):
+    q, codes, scale, ids = _quantized_inputs(gen, 2, 64, 300, 200,
+                                             torch.int8)
+    with pytest.raises(ValueError, match="k=129"):
+        ops.quantized_query_topk(q, codes, scale, ids, 129)
+
+
+@pytest.mark.parametrize("p", [2.0, 1.0, 1.5])
+def test_rerank_kernel(gen, p):
+    q = torch.randn((128, 64), generator=gen).cuda()
+    emb = torch.randn((128, 40, 64), generator=gen).cuda()
+    ids = torch.randint(-1, 500, (128, 40), generator=gen,
+                        dtype=torch.int32).cuda()
+    before = dispatch.launches["rerank"]
+    d = ops.candidate_distances(q, emb, ids, p=p)
+    assert dispatch.launches["rerank"] == before + 1
+    want = ref.rerank_ref(q, emb, ids, p)
+    assert torch.equal(torch.isinf(d), ids < 0)
+    torch.testing.assert_close(d, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,n,k", [(512, 64, 1024), (37, 50, 96)])
+def test_simhash_pack_kernel(gen, m, n, k):
+    x = torch.randn((m, n), generator=gen).cuda()
+    a = torch.randn((n, k), generator=gen).cuda()
+    x[0] = 0.0                                 # -0.0 and +0.0 set the bit
+    before = dispatch.launches["simhash_pack"]
+    sig = ops.simhash_signature(x, a)
+    assert dispatch.launches["simhash_pack"] == before + 1
+    want = ref.simhash_pack_ref(x, a)
+    assert sig.shape == (m, k // 32) and sig.dtype == torch.int32
+    assert (sig[0] == -1).all()
+    shifts = torch.arange(32, device=x.device)
+    bits = ((sig[..., None] >> shifts) & 1).reshape(m, k)
+    bits_p = ((want[..., None] >> shifts) & 1).reshape(m, k)
+    near = (x @ a).abs() < 1e-5
+    assert torch.equal(bits[~near], bits_p[~near])
+
+
+FP32_PATH = ("hash_mm", "dct_mm", "fused_query", "merge")
+INT8_PATH = FP32_PATH + ("quantized_query", "rerank")
+
+
 def test_serve_path_runs_on_the_card(gen):
     from repro_torch.launch import serve
     dispatch.reset_launches()
     rep = serve.run(device="cuda", n_items=4096, steps=2,
                     recall_probe_size=8, log=lambda *a: None)
-    assert all(rep["launches"][k] > 0 for k in dispatch.KERNELS)
+    assert all(rep["launches"][k] > 0 for k in FP32_PATH)
     assert rep["self_hit_rate"] >= 0.95
+
+
+def test_int8_serve_path_runs_on_the_card(gen):
+    from repro_torch.launch import serve
+    dispatch.reset_launches()
+    rep = serve.run(device="cuda", n_items=4096, steps=2,
+                    recall_probe_size=8, precision="int8",
+                    log=lambda *a: None)
+    assert all(rep["launches"][k] > 0 for k in INT8_PATH)
+    assert rep["self_hit_rate"] >= 0.95
+    assert rep["store_bytes_per_item"] <= 256 / 3

@@ -86,7 +86,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["hash_mm"])
     assert set(_build.sources()) == {"hash_mm", "dct_mm", "fused_query",
-                                     "merge"}
+                                     "merge", "quantized_query", "rerank",
+                                     "simhash_pack"}
 
 
 def test_pyproject_ships_the_kernel_sources():
