@@ -14,7 +14,8 @@ each of which raises on failure (the script then exits non-zero):
    versions) and on the card (kernels) with one injected family, at fp32
    and at the int8 tier (whose gids must be equal);
 5. timings: each kernel, its plain version and a PyTorch library call,
-   CUDA-event medians, with the bytes and operations for the bound;
+   CUDA-event medians, with the bytes and operations for the bound; K2
+   and K5 at both micro-batch shapes the path launches (32 and 128 rows);
 6. main path: ``repro_torch.launch.serve`` filled to 262,144 items
    (256 sealed segments), then 20 demo steps; launch counts read around it;
 7. int8 path: the same run with ``precision="int8"`` (phase 6's tenant
@@ -24,6 +25,13 @@ each of which raises on failure (the script then exits non-zero):
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --timings-only
+
+runs phases 1, 2, 4 and 5 and ends with the card's line and one JSON
+object of timing records.  Copied to the root of another checkout (an
+earlier commit, say), it times that checkout's kernels on the same inputs,
+so two versions can be compared in turns within one machine.
 """
 
 from __future__ import annotations
@@ -191,8 +199,18 @@ def _distinct(dp, dfull, k):
     return ~tie
 
 
+def _thin_rows(ids, invalid_rows, sparse_rows, k):
+    """Rows [0, invalid_rows) all invalid; the next ``sparse_rows`` rows
+    keep only k // 2 valid slots (fewer valid candidates than k)."""
+    ids[:invalid_rows] = -1
+    thin = ids[invalid_rows:invalid_rows + sparse_rows]
+    keep = thin[:, :k // 2].clamp(min=0)
+    thin[:] = -1
+    thin[:, :k // 2] = keep
+
+
 def check_fused_query(gen, nq, n, m, c, k, p=2.0, valid_items=None,
-                      invalid_rows=0):
+                      invalid_rows=0, sparse_rows=0, quiet=False):
     import torch
     from repro_torch.kernels import fused_query, ref
     q = torch.randn((nq, n), generator=gen).cuda()
@@ -200,7 +218,7 @@ def check_fused_query(gen, nq, n, m, c, k, p=2.0, valid_items=None,
     db[1::7] = db[::7][:db[1::7].shape[0]]            # duplicate rows: ties
     ids = torch.randint(-1, m, (nq, c), generator=gen,
                         dtype=torch.int32).cuda()
-    ids[:invalid_rows] = -1
+    _thin_rows(ids, invalid_rows, sparse_rows, k)
     d, i = fused_query.fused_query_topk(q, db, ids, k, p=p,
                                         valid_items=valid_items)
     dp, ip = ref.fused_query_topk_ref(q, db, ids, k, p=p,
@@ -219,15 +237,18 @@ def check_fused_query(gen, nq, n, m, c, k, p=2.0, valid_items=None,
     if bad:
         raise AssertionError(f"fused_query {nq}x{c} k={k}: {bad} ids differ "
                              "at distinct distances")
+    if not torch.equal(i[~fin], ip[~fin]):
+        raise AssertionError(f"fused_query {nq}x{c} k={k}: -1 padding")
     err = float((d[fin] - dp[fin]).abs().max()) if fin.any() else 0.0
-    log(f"  fused_query nq={nq} N={n} M={m} C={c} k={k} p={p} "
-        f"valid={valid_items} invalid_rows={invalid_rows}: ok "
-        f"(max err {err:.3g}, {int(tie.sum())} tied slots)")
+    if not quiet:
+        log(f"  fused_query nq={nq} N={n} M={m} C={c} k={k} p={p} "
+            f"valid={valid_items} invalid_rows={invalid_rows}: ok "
+            f"(max err {err:.3g}, {int(tie.sum())} tied slots)")
     return err
 
 
 def check_quantized_query(gen, nq, m, c, k, dtype, p=2.0, valid_items=None,
-                          invalid_rows=0, n=64):
+                          invalid_rows=0, n=64, sparse_rows=0, quiet=False):
     """K5 against its plain version: bit for bit for int8 at p in {1, 2}
     (every partial sum is an exact integer), else distances rtol 1e-5 atol
     1e-6 and ids equal at distinct distances."""
@@ -243,7 +264,7 @@ def check_quantized_query(gen, nq, m, c, k, dtype, p=2.0, valid_items=None,
     q = q.cuda()                            # |q / scale| <= 127: exact sums
     ids = torch.randint(-1, m, (nq, c), generator=gen,
                         dtype=torch.int32).cuda()
-    ids[:invalid_rows] = -1
+    _thin_rows(ids, invalid_rows, sparse_rows, k)
     d, i = quantized_query.quantized_query_topk(q, codes, scale, ids, k, p=p,
                                                 valid_items=valid_items)
     dp, ip = ref.quantized_topk_ref(q, codes, scale, ids, k, p=p,
@@ -255,7 +276,8 @@ def check_quantized_query(gen, nq, m, c, k, dtype, p=2.0, valid_items=None,
         if not (torch.equal(bits(d), bits(dp)) and torch.equal(i, ip)):
             raise AssertionError(f"{tag}: not bit-identical to the plain "
                                  "version")
-        log(f"  {tag}: bit-identical")
+        if not quiet:
+            log(f"  {tag}: bit-identical")
         return 0.0
     fin = torch.isfinite(dp)
     if not torch.equal(fin, torch.isfinite(d)):
@@ -269,10 +291,57 @@ def check_quantized_query(gen, nq, m, c, k, dtype, p=2.0, valid_items=None,
     if bad:
         raise AssertionError(f"{tag}: {bad} ids differ at distinct "
                              "distances")
+    if not torch.equal(i[~fin], ip[~fin]):
+        raise AssertionError(f"{tag}: -1 padding")
     err = float((d[fin] - dp[fin]).abs().max()) if fin.any() else 0.0
-    log(f"  {tag}: ok (max err {err:.3g}, {int((~ok & fin).sum())} tied "
-        "slots)")
+    if not quiet:
+        log(f"  {tag}: ok (max err {err:.3g}, {int((~ok & fin).sum())} tied "
+            "slots)")
     return err
+
+
+def check_query_ties(gen, nq, dtype, n=64, c=1024):
+    """K2 (fp32) or K5 (int8/bf16): ids 0..G-1 name one vector, the query
+    itself, and sit in slots owned by different cluster ranks in an order
+    unlike their ids.  The lower slot must win each tie, exactly, and the
+    whole answer must equal the plain version's."""
+    import torch
+    from repro_torch.kernels import (fused_query, quantize, quantized_query,
+                                     ref)
+    db = torch.randn((512, n), generator=gen)
+    db[:8] = db[0]
+    q = db[0].repeat(nq, 1)
+    ids = torch.randint(8, 512, (nq, c), generator=gen, dtype=torch.int32)
+    plan = fused_query._plan(nq, c, n, torch.empty((), dtype=dtype)
+                             .element_size())
+    g = plan.cluster
+    # id j at a slot of rank G - 1 - j: slot order runs against id order
+    slots = [(g - 1 - j) + g * (3 + 5 * (g - 1 - j)) for j in range(g)]
+    if sorted(plan.owner(s_) for s_ in slots) != list(range(g)):
+        raise AssertionError(f"ties: slots {slots} miss a rank of {g}")
+    for j, s_ in enumerate(slots):
+        ids[:, s_] = j
+    want = [j for _, j in sorted((s_, j) for j, s_ in enumerate(slots))]
+    k = len(want) + 2
+    q, ids = q.cuda(), ids.cuda()
+    if dtype == torch.float32:
+        db = db.cuda()
+        d, i = fused_query.fused_query_topk(q, db, ids, k)
+        dp, ip = ref.fused_query_topk_ref(q, db, ids, k)
+    else:
+        codes, scale = quantize.encode(
+            db.cuda(), "int8" if dtype == torch.int8 else "bf16")
+        d, i = quantized_query.quantized_query_topk(q, codes, scale, ids, k)
+        dp, ip = ref.quantized_topk_ref(q, codes, scale, ids, k)
+    torch.cuda.synchronize()
+    nt = len(want)
+    if not (torch.equal(bits(d[:, :nt]), bits(dp[:, :nt]))
+            and torch.equal(i, ip)
+            and i[:, :nt].tolist() == [want] * nq):
+        raise AssertionError(f"ties nq={nq} {dtype} G={plan.cluster}: "
+                             f"got {i[0, :nt].tolist()}, want {want}")
+    log(f"  ties across {plan.cluster} cluster ranks, nq={nq} {dtype}: "
+        f"lower slot first, ids {want}")
 
 
 def check_rerank(gen, b, c, n=64, p=2.0):
@@ -403,16 +472,22 @@ def parity_run():
                         proj_items=proj_items, proj_q=proj_q,
                         segments=len(sv.index.segments))
         if dev == "cuda":
-            # a realistic K2 input for the timings: the candidates of one
-            # 32-row micro-batch against a full sealed segment
+            # realistic K2 inputs for the timings: the candidates of a
+            # 32-row micro-batch (the profiled batch) and of a 128-row one
+            # (the serve loop's chunk) against a full sealed segment
             seg = sv.index.segments[0]
-            qq = torch.as_tensor(q[:32], device=seg.state.db.device)
-            h, pj = lidx.hash_stage(seg.state.alpha, seg.state.b, cfg, qq)
-            bk = lidx.probe_stage(seg.state.mix, cfg, h, pj, 4)
-            cands = lidx.gather_stage(seg.state.table, bk, cfg,
-                                      seg.capacity, live_mask=seg.live)
-            out["k2_inputs"] = (qq.contiguous(), seg.state.db,
-                                cands.contiguous())
+            q128 = sv.embed(sample_fvals(np.random.default_rng(7), nodes,
+                                         128))
+            out["k2_inputs"] = {}
+            for rows, qq in ((32, torch.as_tensor(q[:32], device=q128.device)),
+                             (128, q128)):
+                h, pj = lidx.hash_stage(seg.state.alpha, seg.state.b, cfg,
+                                        qq)
+                bk = lidx.probe_stage(seg.state.mix, cfg, h, pj, 4)
+                cands = lidx.gather_stage(seg.state.table, bk, cfg,
+                                          seg.capacity, live_mask=seg.live)
+                out["k2_inputs"][rows] = (qq.contiguous(), seg.state.db,
+                                          cands.contiguous())
     cpu, gpu = out["cpu"], out["cuda"]
     near = lambda p: ((p - torch.round(p)).abs() < 1e-4).any(dim=-1)
     boundary_gids = set(cpu["gids"][near(cpu["proj_items"]).numpy()]
@@ -516,11 +591,66 @@ def int8_parity_run():
 # -- phase 5: timings ---------------------------------------------------------
 
 
+def _k2_record(q, db, cands, kk):
+    import torch
+    from repro_torch.kernels import fused_query, ref
+    nq, c = cands.shape
+    valid = (cands >= 0) & (cands < db.shape[0])
+    rows_needed = int(torch.unique(cands[valid]).numel())
+    n_valid = int(valid.sum())
+
+    def lib_fused():
+        emb = db[cands.clamp(min=0).long()]
+        dist = torch.linalg.vector_norm(emb - q[:, None, :], dim=-1)
+        dist = torch.where(cands < 0, torch.inf, dist)
+        return torch.topk(dist, kk, largest=False)
+    return dict(
+        shape=f"q ({nq}, 64), db {tuple(db.shape)}, ids ({nq}, {c}), "
+              f"k={kk}; {n_valid} valid candidates, {rows_needed} rows",
+        ms=time_ms(lambda: fused_query.fused_query_topk(q, db, cands, kk)),
+        host_ms=host_ms(lambda: fused_query.fused_query_topk(q, db, cands,
+                                                              kk)),
+        plain_ms=time_ms(lambda: ref.fused_query_topk_ref(q, db, cands, kk)),
+        library_ms=time_ms(lib_fused),
+        bytes=4 * (nq * 64 + nq * c + rows_needed * 64 + 2 * nq * kk),
+        ops=3 * 64 * n_valid)
+
+
+def _k5_record(qq, codes, scale, qids, kq, kw):
+    import torch
+    from repro_torch.kernels import quantized_query, ref
+    nq, c = qids.shape
+    qval = (qids >= 0) & (qids < codes.shape[0])
+    rows_needed = int(torch.unique(qids[qval]).numel())
+    n_valid = int(qval.sum())
+
+    def lib_quantized():
+        qc = torch.round(qq / scale)
+        rows = codes[qids.clamp(min=0).long()].float()
+        dist = torch.linalg.vector_norm(rows - qc[:, None, :], dim=-1)
+        dist = torch.where(qids < 0, torch.inf, dist)
+        dv, iv = torch.topk(dist, kq, largest=False)
+        return dv * scale, iv
+    return dict(
+        shape=f"q ({nq}, 64), codes {tuple(codes.shape)} {codes.dtype}, ids "
+              f"({nq}, {c}), k={kq}; {n_valid} valid candidates, "
+              f"{rows_needed} rows",
+        ms=time_ms(lambda: quantized_query.quantized_query_topk(
+            qq, codes, scale, qids, kq, **kw)),
+        host_ms=host_ms(lambda: quantized_query.quantized_query_topk(
+            qq, codes, scale, qids, kq, **kw)),
+        plain_ms=time_ms(lambda: ref.quantized_topk_ref(qq, codes, scale,
+                                                        qids, kq, **kw)),
+        library_ms=time_ms(lib_quantized),
+        bytes=4 * (nq * 64 + nq * c + 1 + 2 * nq * kq)
+        + rows_needed * 64 * codes.element_size(),
+        ops=3 * 64 * n_valid)
+
+
 def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
     import torch
     from repro_torch.embedders.basis import cheb_kernel_constants
-    from repro_torch.kernels import (dct_mm, fused_query, hash_mm, merge,
-                                     quantized_query, ref, rerank,
+    from repro_torch.kernels import (dct_mm, hash_mm, merge, ref, rerank,
                                      simhash_pack)
 
     rec = {}
@@ -556,29 +686,12 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
         bytes=4 * (m * 64 + 64 * 64 + 64 + m * 64),
         ops=2 * m * 64 * 64 + m * 64)
 
-    # K2 at one segment of a 32-row micro-batch, real candidates
-    q, db, cands = k2_inputs
-    nq, c = cands.shape
+    # K2 at one segment of a 32-row (profiled) and a 128-row (the loop's
+    # chunk) micro-batch, real candidates
     kk = 10
-    valid = (cands >= 0) & (cands < db.shape[0])
-    rows_needed = int(torch.unique(cands[valid]).numel())
-    n_valid = int(valid.sum())
-
-    def lib_fused():
-        emb = db[cands.clamp(min=0).long()]
-        dist = torch.linalg.vector_norm(emb - q[:, None, :], dim=-1)
-        dist = torch.where(cands < 0, torch.inf, dist)
-        return torch.topk(dist, kk, largest=False)
-    rec["fused_query"] = dict(
-        shape=f"q ({nq}, 64), db {tuple(db.shape)}, ids ({nq}, {c}), "
-              f"k={kk}; {n_valid} valid candidates, {rows_needed} rows",
-        ms=time_ms(lambda: fused_query.fused_query_topk(q, db, cands, kk)),
-        host_ms=host_ms(lambda: fused_query.fused_query_topk(q, db, cands,
-                                                              kk)),
-        plain_ms=time_ms(lambda: ref.fused_query_topk_ref(q, db, cands, kk)),
-        library_ms=time_ms(lib_fused),
-        bytes=4 * (nq * 64 + nq * c + rows_needed * 64 + 2 * nq * kk),
-        ops=3 * 64 * n_valid)
+    for rows, (q, db, cands) in sorted(k2_inputs.items()):
+        rec["fused_query" if rows == 32 else f"fused_query@{rows}"] = \
+            _k2_record(q, db, cands, kk)
 
     # K3 at the fan-in of 257 segments x k=10 for a 32-row micro-batch
     rows, runs = 32, 257
@@ -607,35 +720,13 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
         bytes=8 * rows * pm + 8 * rows * kk,
         ops=cmp_ops)
 
-    # K5 at one sealed int8 segment of a 128-row micro-batch, real
-    # candidates, k = kq = 40
+    # K5 at one sealed int8 segment of a 128-row micro-batch (real
+    # candidates, k = kq = 40), and at its first 32 rows: candidates are per
+    # row, so they are what a 32-row batch would gather
     (qq, codes, scale, qids, kq), kw = k5_inputs
-    nq, c = qids.shape
-    qval = (qids >= 0) & (qids < codes.shape[0])
-    rows_needed = int(torch.unique(qids[qval]).numel())
-    n_valid = int(qval.sum())
-
-    def lib_quantized():
-        qc = torch.round(qq / scale)
-        rows = codes[qids.clamp(min=0).long()].float()
-        dist = torch.linalg.vector_norm(rows - qc[:, None, :], dim=-1)
-        dist = torch.where(qids < 0, torch.inf, dist)
-        dv, iv = torch.topk(dist, kq, largest=False)
-        return dv * scale, iv
-    rec["quantized_query"] = dict(
-        shape=f"q ({nq}, 64), codes {tuple(codes.shape)} {codes.dtype}, ids "
-              f"({nq}, {c}), k={kq}; {n_valid} valid candidates, "
-              f"{rows_needed} rows",
-        ms=time_ms(lambda: quantized_query.quantized_query_topk(
-            qq, codes, scale, qids, kq, **kw)),
-        host_ms=host_ms(lambda: quantized_query.quantized_query_topk(
-            qq, codes, scale, qids, kq, **kw)),
-        plain_ms=time_ms(lambda: ref.quantized_topk_ref(qq, codes, scale,
-                                                        qids, kq, **kw)),
-        library_ms=time_ms(lib_quantized),
-        bytes=4 * (nq * 64 + nq * c + 1 + 2 * nq * kq)
-        + rows_needed * 64 * codes.element_size(),
-        ops=3 * 64 * n_valid)
+    rec["quantized_query"] = _k5_record(qq, codes, scale, qids, kq, kw)
+    rec["quantized_query@32"] = _k5_record(
+        qq[:32].contiguous(), codes, scale, qids[:32].contiguous(), kq, kw)
 
     # K6 at the survivor rescore of that 128-row batch: (128, 40, 64)
     (rq, rrows, rgids, _), rkw = k6_inputs
@@ -694,7 +785,8 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
 
     for name, t in rec.items():
         bms, by = bound_ms(t["bytes"], t["ops"])
-        t.update(bound_ms=bms, bound_by=by, max_abs_err=errs[name])
+        t.update(bound_ms=bms, bound_by=by,
+                 max_abs_err=errs.get(name.split("@")[0]))
         log("  timing " + json.dumps({"name": name, **t}))
     return rec
 
@@ -744,6 +836,13 @@ def profile_batches(sv, n_batches=2, rows=32):
     for e in kern:
         by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0) + e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # K2 is row_topk_kernel<float, ...>, K5 the int8/bf16 instantiations
+    scorer = {"fused_query": 0.0, "quantized_query": 0.0}
+    for e in kern:
+        if "row_topk_kernel" in e["name"]:
+            which = ("fused_query" if "row_topk_kernel<float" in e["name"]
+                     else "quantized_query")
+            scorer[which] += e["dur"] / 1e3 / n_batches
     res = {"rows": rows, "segments": len(sv.index.segments),
            "wall_ms": wall * 1e3,
            "kernel_ms": busy_us / 1e3 if kern else "not measured",
@@ -751,6 +850,7 @@ def profile_batches(sv, n_batches=2, rows=32):
            "survivor_gather_ms_per_batch": (sum(gather_s) * 1e3 / n_batches
                                             if gather_s else None),
            "busy_share": busy_us / 1e6 / wall if kern else "not measured",
+           "scorer_ms_per_batch": scorer,
            "top_kernels_ms_per_batch": {k: v / 1e3 / n_batches
                                         for k, v in top}}
     log("  profile " + json.dumps(res))
@@ -848,7 +948,15 @@ def simhash_path(sv, batch=SIMHASH_BATCH, bits_=SIMHASH_BITS):
 # -- main ---------------------------------------------------------------------
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--timings-only", action="store_true",
+                    help="phases 1, 2, 4 and 5 only: build, parity (which "
+                    "captures the timed inputs) and the kernel timings, "
+                    "then one JSON line of timing records; to time another "
+                    "checkout's kernels, copy this script to its root")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -875,6 +983,15 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(0)
+    if args.timings_only:
+        log("[4/7] CPU (plain versions) vs card (kernels) parity")
+        k2_inputs = parity_run()
+        captured = int8_parity_run()
+        log(f"[5/7] timings, {smi}")
+        rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {})
+        print(smi)
+        print(json.dumps({"timings": rec}))
+        return 0
     log("[3/7] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4; dct_mm rtol 1e-5 atol 1e-5; "
@@ -920,6 +1037,32 @@ def main() -> int:
                                       invalid_rows=2)
         check_quantized_query(gen, 8, 1024, 512, 10, dt, valid_items=600)
         check_quantized_query(gen, 5, 300, 200, 10, dt, n=50)
+    errs["quantized_query"] = max(
+        errs["quantized_query"],
+        *(check_quantized_query(gen, 32, 1024, 1024, 10, i8, p=p)
+          for p in (2.0, 1.0)))
+    # the cluster split's edges (csrc/topk.cuh): C not a multiple of G x S,
+    # N = 50 on the scalar instantiation, k from 1 to 128, an all-invalid
+    # row, a valid_items cut and a row with fewer valid candidates than k
+    n_cases, worst = 0, 0.0
+    for c in (200, 1000, 1023, 1024):
+        for n in (48, 50, 64):
+            for k in (1, 10, 40, 128):
+                worst = max(worst, check_fused_query(
+                    gen, 32, n, 1024, c, k, valid_items=900, invalid_rows=1,
+                    sparse_rows=1, quiet=True))
+                for dt in (i8, bf):
+                    worst = max(worst, check_quantized_query(
+                        gen, 32, 1024, c, k, dt, valid_items=900,
+                        invalid_rows=1, n=n, sparse_rows=1, quiet=True))
+                n_cases += 3
+    log(f"  fused_query + quantized_query int8/bf16 at C in (200, 1000, "
+        f"1023, 1024) x N in (48, 50, 64) x k in (1, 10, 40, 128), 32 rows, "
+        f"valid 900, an all-invalid and a thin row: {n_cases} cases ok "
+        f"(int8 bit-identical; max err {worst:.3g})")
+    for nq in (32, 128):
+        for dt in (torch.float32, i8, bf):
+            check_query_ties(gen, nq, dt)
     errs["rerank"] = check_rerank(gen, 128, 40)
     check_rerank(gen, 128, 40, p=1.0)
     check_rerank(gen, 9, 200, n=100, p=1.5)

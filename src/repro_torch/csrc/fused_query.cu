@@ -1,98 +1,44 @@
-// K2 fused_query: candidate gather + masked L^p distance + top-k, per query
+// K2 fused_query: candidate gather + masked L^p distance + top-k per query
 // row, without materialising the (nq, C, N) candidate tensor.
 //
-// Replaces: src/repro/kernels/fused_query.py, _fused_query_kernel (reached
-// through ops.fused_query_topk from core.index.query_index, once per
-// segment per query micro-batch).
+// Replaces: src/repro/kernels/fused_query.py, _fused_query_kernel (the
+// pallas_call at line 131, reached through ops.fused_query_topk from
+// core.index.query_index, once per segment per query micro-batch).
 //
-// Bound on the H100: bytes.  Each valid candidate costs one N-float row read
-// (256 B at N = 64) for 3N flops; the gather is random-access, so the rows
-// come in 32-byte sectors rather than full lines.
+// Bound on the H100: bytes.  Per call, the queries (nq x N x 4), the ids
+// (nq x C x 4), each distinct valid row once (N x 4 = 256 B at N = 64) and
+// the (nq, k) outputs: 0.25 MB at 32 rows x C = 1024 against a 1,024-row
+// segment, 0.075 us at 3.35 TB/s.  What holds the kernel is latency, not
+// bandwidth: the id load and the dependent row load, then the selection,
+// the cluster barrier and the merge, on a grid of ~128-256 blocks.
 //
-// Design: one block per query row.  The block loads its own candidate ids
-// (the TPU version had them scalar-prefetched) and its query into shared
-// memory; each warp takes candidate slots in turn, its lanes stride the row
-// and a shuffle reduction finishes the distance (p = 2, p = 1, general p).
-// Slots with id < 0 or id >= valid score +inf.  The C distances and ids stay
-// in shared memory (C * 8 bytes), and k rounds of block-wide argmin pick
-// the winners, the lower slot winning ties (topk.cuh, shared with K5).
+// Design (topk.cuh, shared with K5): a row is split across a cluster of G
+// blocks that deal its slots round-robin, so that 32 rows keep 128 SMs
+// busy where one block a row kept 32; each block compacts its slots' valid
+// ids with a warp ballot and reads every valid row with L = N / 4 lanes of
+// one float4 load each (16 at N = 64), four rows in flight per sub-warp;
+// it places its (distance bits << 32 | slot) keys by counting smaller
+// keys, writes its sorted k into rank 0's shared memory, and rank 0 merges
+// the G lists by binary search.  Ties go to the lower slot, exactly, as in
+// the stable sort of the plain version.  N % 4 != 0 (or an unaligned
+// table) takes the scalar instantiation.
 #include "topk.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__global__ void __launch_bounds__(kThreads)
-fused_query_kernel(const float* __restrict__ q, const float* __restrict__ db,
-                   const int* __restrict__ ids, int n, int c, int k,
-                   int valid, int pmode, float p, float* __restrict__ out_d,
-                   int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sd = reinterpret_cast<float*>(smem);     // (c,) distances
-  int* si = reinterpret_cast<int*>(sd + c);       // (c,) candidate ids
-  float* sq = reinterpret_cast<float*>(si + c);   // (n,) the query row
-  __shared__ float wbest[kWarps];
-  __shared__ int wslot[kWarps];
-
-  const int row = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int* rid = ids + static_cast<size_t>(row) * c;
-
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    sq[j] = q[static_cast<size_t>(row) * n + j];
-  }
-  __syncthreads();
-
-  for (int s = warp; s < c; s += kWarps) {
-    const int id = rid[s];
-    float d = INFINITY;
-    if (id >= 0 && id < valid) {
-      const float* x = db + static_cast<size_t>(id) * n;
-      float acc = 0.0f;
-      for (int j = lane; j < n; j += 32) {
-        const float diff = x[j] - sq[j];
-        if (pmode == 2) {
-          acc += diff * diff;
-        } else if (pmode == 1) {
-          acc += fabsf(diff);
-        } else {
-          acc += powf(fabsf(diff), p);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      }
-      d = pmode == 2 ? sqrtf(acc)
-                     : (pmode == 1 ? acc : powf(acc, 1.0f / p));
-    }
-    if (lane == 0) {
-      sd[s] = d;
-      si[s] = id;
-    }
-  }
-  __syncthreads();
-
-  repro_torch::block_select_topk<kThreads>(sd, si, c, k, 1.0f, wbest, wslot,
-                                          out_d, out_i, row);
-}
-
-}  // namespace
 
 REPRO_DEFINE_ERROR_STRING(fused_query)
 
 // q: (nq, n); db: (m, n); ids: (nq, c) int32; outputs (nq, k) distances and
 // ids.  pmode 2 / 1 select the p = 2 / p = 1 forms, 0 the general power p.
+// cluster (G), slots (S), lanes_log2 and vec come from the wrapper's plan.
 REPRO_EXPORT int fused_query_launch(const float* q, const float* db,
                                     const int* ids, int nq, int n, int c,
                                     int k, int valid, int pmode, float p,
-                                    float* out_d, int* out_i, void* stream) {
-  const size_t smem = static_cast<size_t>(c) * 8 + static_cast<size_t>(n) * 4;
-  cudaError_t err = repro_torch::allow_dynamic_smem(fused_query_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_query_kernel<<<nq, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, db, ids, n, c, k, valid, pmode, p, out_d, out_i);
-  return static_cast<int>(cudaGetLastError());
+                                    int cluster, int slots, int lanes_log2,
+                                    int vec, float* out_d, int* out_i,
+                                    void* stream) {
+  namespace topk = repro_torch::topk;
+  const topk::Args a{q,       db,      nullptr, ids,   n,          c,
+                     k,       valid,   pmode,   p,     cluster,    slots,
+                     lanes_log2, out_d, out_i};
+  return vec ? topk::launch<float, true>(a, nq, stream)
+             : topk::launch<float, false>(a, nq, stream);
 }

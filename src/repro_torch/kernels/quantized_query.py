@@ -15,7 +15,7 @@ import functools
 import torch
 
 from . import _build, dispatch
-from .fused_query import KP, SMEM_LIMIT
+from .fused_query import KP, SMEM_LIMIT, _plan
 from .ref import quantized_topk_ref as plain  # noqa: F401
 
 CODE_DTYPES = (torch.int8, torch.bfloat16)
@@ -28,7 +28,8 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -70,10 +71,13 @@ def quantized_query_topk(q: torch.Tensor, codes: torch.Tensor,
     out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     if nq == 0:
         return out_d, out_i
+    plan = _plan(nq, c, n, codes.element_size(),
+                 aligned=codes.data_ptr() % 16 == 0)
     lib, fn = _launcher()
     code = fn(q.data_ptr(), codes.data_ptr(), int(codes.dtype == torch.int8),
               scale.data_ptr(), ids.data_ptr(), nq, n, c, k, valid, pmode,
-              float(p), out_d.data_ptr(), out_i.data_ptr(),
+              float(p), plan.cluster, plan.slots, plan.lanes.bit_length() - 1,
+              int(plan.vec), out_d.data_ptr(), out_i.data_ptr(),
               dispatch.stream_handle(q))
     _build.check(lib, "quantized_query", code)
     dispatch.launches["quantized_query"] += 1

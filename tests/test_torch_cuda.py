@@ -135,6 +135,118 @@ def test_quantized_query_kernel_refuses_k_over_128(gen):
         ops.quantized_query_topk(q, codes, scale, ids, 129)
 
 
+def _assert_topk_matches(d, i, dp, ip, exact):
+    """Bit for bit when ``exact``; else distances rtol 1e-5 atol 1e-6 and
+    ids equal wherever the plain distances are distinct."""
+    if exact:
+        assert torch.equal(d.view(torch.int32), dp.view(torch.int32))
+        assert torch.equal(i, ip)
+        return
+    fin = torch.isfinite(dp)
+    assert torch.equal(fin, torch.isfinite(d))
+    assert torch.equal(i[~fin], ip[~fin])                  # the -1 padding
+    torch.testing.assert_close(d[fin], dp[fin], rtol=1e-5, atol=1e-6)
+    distinct = torch.ones_like(fin)
+    close = torch.isclose(dp[:, 1:], dp[:, :-1], rtol=1e-5, atol=0)
+    distinct[:, 1:] &= ~close
+    distinct[:, :-1] &= ~close
+    assert torch.equal(i[distinct], ip[distinct])
+
+
+def _tied_inputs(gen, nq, n, c, dtype):
+    """Rows 0..7 of the table are one vector; each query is that vector, so
+    ids 0..7 all lie at distance 0.  They sit at slots owned by different
+    cluster ranks, in an order unlike their ids: the lower slot must win."""
+    from repro_torch.kernels import fused_query, quantize
+    db = torch.randn((512, n), generator=gen)
+    db[:8] = db[0]
+    q = db[0].repeat(nq, 1)
+    ids = torch.randint(8, 512, (nq, c), generator=gen, dtype=torch.int32)
+    plan = fused_query._plan(nq, c, n, torch.empty((), dtype=dtype)
+                             .element_size())
+    assert plan.cluster > 1
+    g = plan.cluster
+    # id j at a slot of rank G - 1 - j: slot order runs against id order
+    slots = [(g - 1 - j) + g * (3 + 5 * (g - 1 - j)) for j in range(g)]
+    assert sorted(plan.owner(s) for s in slots) == list(range(g))
+    for j, s in enumerate(slots):
+        ids[:, s] = j
+    want = [j for _, j in sorted((s, j) for j, s in enumerate(slots))]
+    if dtype == torch.float32:
+        return q.cuda(), db.cuda(), None, ids.cuda(), want
+    codes, scale = quantize.encode(db, "int8" if dtype == torch.int8
+                                   else "bf16")
+    return q.cuda(), codes.cuda(), scale.cuda(), ids.cuda(), want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("nq", [32, 128])
+def test_query_kernels_ties_across_cluster_ranks(gen, dtype, nq):
+    q, db, scale, ids, want = _tied_inputs(gen, nq, 64, 1024, dtype)
+    k = len(want) + 2
+    if dtype == torch.float32:
+        d, i = ops.fused_query_topk(q, db, ids, k)
+        dp, ip = ref.fused_query_topk_ref(q, db, ids, k)
+    else:
+        d, i = ops.quantized_query_topk(q, db, scale, ids, k)
+        dp, ip = ref.quantized_topk_ref(q, db, scale, ids, k)
+    n_tied = len(want)
+    assert torch.equal(d[:, :n_tied], dp[:, :n_tied])
+    assert (d[:, :n_tied] == d[:, :1]).all()
+    assert torch.equal(i, ip)
+    assert i[:, :n_tied].tolist() == [want] * nq
+
+
+@pytest.mark.parametrize("k", [1, 10, 40, 128])
+@pytest.mark.parametrize("n", [48, 50, 64])
+@pytest.mark.parametrize("c", [200, 1000, 1023, 1024])
+def test_fused_query_kernel_shapes(gen, c, n, k):
+    """C not a multiple of G x S, N = 50 on the scalar instantiation,
+    k from 1 to 128; an all-invalid row, a valid_items cut, and a row with
+    fewer valid candidates than k."""
+    q = torch.randn((32, n), generator=gen).cuda()
+    db = torch.randn((1024, n), generator=gen).cuda()
+    ids = torch.randint(-1, 1024, (32, c), generator=gen,
+                        dtype=torch.int32).cuda()
+    ids[0] = -1
+    ids[1, :] = -1
+    ids[1, : k // 2] = 7                    # fewer valid than k
+    before = dispatch.launches["fused_query"]
+    d, i = ops.fused_query_topk(q, db, ids, k, valid_items=900)
+    assert dispatch.launches["fused_query"] == before + 1
+    dp, ip = ref.fused_query_topk_ref(q, db, ids, k, valid_items=900)
+    _assert_topk_matches(d, i, dp, ip, exact=False)
+    assert (i[0] == -1).all() and torch.isinf(d[0]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 40, 128])
+@pytest.mark.parametrize("n", [48, 50, 64])
+@pytest.mark.parametrize("c", [200, 1000, 1023, 1024])
+def test_quantized_query_kernel_shapes(gen, c, n, k, dtype):
+    q, codes, scale, ids = _quantized_inputs(gen, 32, n, 1024, c, dtype)
+    ids[1, :] = -1
+    ids[1, : k // 2] = 7
+    d, i = ops.quantized_query_topk(q, codes, scale, ids, k,
+                                    valid_items=900)
+    dp, ip = ref.quantized_topk_ref(q, codes, scale, ids, k,
+                                    valid_items=900)
+    _assert_topk_matches(d, i, dp, ip, exact=dtype == torch.int8)
+    assert (i[0] == -1).all() and torch.isinf(d[0]).all()
+
+
+@pytest.mark.parametrize("p", [2.0, 1.0])
+@pytest.mark.parametrize("nq", [32, 128])
+def test_quantized_query_kernel_int8_bit_identical(gen, nq, p):
+    q, codes, scale, ids = _quantized_inputs(gen, nq, 64, 1024, 1024,
+                                             torch.int8)
+    for k in (1, 10, 40, 128):
+        d, i = ops.quantized_query_topk(q, codes, scale, ids, k, p=p)
+        dp, ip = ref.quantized_topk_ref(q, codes, scale, ids, k, p=p)
+        _assert_topk_matches(d, i, dp, ip, exact=True)
+
+
 @pytest.mark.parametrize("p", [2.0, 1.0, 1.5])
 def test_rerank_kernel(gen, p):
     q = torch.randn((128, 64), generator=gen).cuda()
