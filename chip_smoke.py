@@ -7,15 +7,21 @@ Needs one CUDA card and nvcc (``$CUDA_HOME`` or /usr/local/cuda).  Phases,
 each of which raises on failure (the script then exits non-zero):
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: every ``csrc/*.cu`` compiled by nvcc for sm_90a, in parallel;
+2. build: every ``csrc/*.cu`` compiled by nvcc for sm_90a, in parallel,
+   and beside them the launch floor (``tools/launch_floor.cu``);
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card, at the main path's shapes and at edge shapes;
+   card, at the main path's shapes and at edge shapes (K1 and K4 also on
+   unaligned views, and bit for bit across batch sizes);
 4. parity: the l2-basis pipeline at 8,192 items on the CPU (plain
    versions) and on the card (kernels) with one injected family, at fp32
    and at the int8 tier (whose gids must be equal);
 5. timings: each kernel, its plain version and a PyTorch library call,
-   CUDA-event medians, with the bytes and operations for the bound; K2
-   and K5 at both micro-batch shapes the path launches (32 and 128 rows);
+   CUDA-event medians, with the bytes and operations for the bound, and
+   the host time per call of the kernel's wrapper and of the library
+   call, between CUDA events and on the host clock; K2 and K5 at both
+   micro-batch shapes the path launches (32 and 128 rows), K1 at 32, 128
+   and 256 rows; and the launch floor, an empty kernel called through
+   K1's ctypes route and launched as K1 is;
 6. main path: ``repro_torch.launch.serve`` filled to 262,144 items
    (256 sealed segments), then 20 demo steps; launch counts read around it;
 7. int8 path: the same run with ``precision="int8"`` (phase 6's tenant
@@ -52,6 +58,7 @@ MAIN_ITEMS = 262144
 MAIN_STEPS = 20
 PARITY_ITEMS = 8192
 WARMUP, REPS, GRAPH_REPLAYS = 10, 50, 10
+HOST_CALLS, HOST_ROUNDS = 100, 9
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 
@@ -85,7 +92,9 @@ def nvidia_smi_line() -> str:
 def host_ms(fn, warmup=WARMUP, reps=REPS) -> float:
     """Median per-call time of ``fn()`` between CUDA events recorded around
     each call.  The card waits for the host between calls, so this is the
-    host-inclusive cost a caller sees, launch overhead and all."""
+    host-inclusive cost a caller sees, launch overhead and all (the
+    yardstick of the host column up to PR 13; the events add their own
+    cost to each call)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -98,6 +107,33 @@ def host_ms(fn, warmup=WARMUP, reps=REPS) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def host_clock_ms(fn, warmup=WARMUP, calls=HOST_CALLS, rounds=HOST_ROUNDS
+                  ) -> float:
+    """Host time per call of ``fn()`` on the host clock, no events: rounds
+    of ``calls`` calls, each started on an idle card and closed by a
+    synchronize outside the timed span, so the launch queue never fills
+    and the card never holds the host back; the median round."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def host_times(fn, prefix="") -> dict:
+    """``fn``'s host time per call by both yardsticks: ``host_ms`` between
+    CUDA events, ``host_clock_ms`` on the host clock."""
+    return {f"{prefix}host_ms": host_ms(fn),
+            f"{prefix}host_clock_ms": host_clock_ms(fn)}
 
 
 def time_ms(fn, warmup=WARMUP, reps=REPS, replays=GRAPH_REPLAYS) -> float:
@@ -144,12 +180,22 @@ def bits(t):
 # -- phase 3: kernel checks ---------------------------------------------------
 
 
-def check_hash_mm(gen, m, n, k, r=4.0):
+def on_card(t, offset=0):
+    """``t`` copied to the card, ``offset`` elements past a 16-byte-aligned
+    base: a contiguous view that is unaligned when offset % 4 != 0."""
+    import torch
+    flat = torch.empty(offset + t.numel(), dtype=t.dtype, device="cuda")
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_hash_mm(gen, m, n, k, r=4.0, offset=0, quiet=False):
     import torch
     from repro_torch.kernels import hash_mm, ref
-    x = (torch.randn((m, n), generator=gen) * 0.5).cuda()
-    a = torch.randn((n, k), generator=gen).cuda()
-    b = torch.rand((k,), generator=gen).cuda()
+    x = on_card(torch.randn((m, n), generator=gen) * 0.5, offset)
+    a = on_card(torch.randn((n, k), generator=gen), offset)
+    b = on_card(torch.rand((k,), generator=gen), offset)
     h, p = hash_mm.hash_mm(x, a, b, r)
     hp, pp = ref.hash_mm_proj_ref(x, a, b, r)
     torch.cuda.synchronize()
@@ -163,28 +209,84 @@ def check_hash_mm(gen, m, n, k, r=4.0):
                              "away from a bucket boundary")
     boundary = int((~safe).sum())
     flips = int((h != hp).sum())
-    log(f"  hash_mm {m}x{n}x{k}: ok (max |proj err| "
-        f"{(p - pp).abs().max().item():.3g}, {boundary} boundary values, "
-        f"{flips} flipped)")
+    if not quiet:
+        log(f"  hash_mm {m}x{n}x{k} offset {offset}: ok (max |proj err| "
+            f"{(p - pp).abs().max().item():.3g}, {boundary} boundary "
+            f"values, {flips} flipped)")
     return float((p - pp).abs().max())
 
 
-def check_dct_mm(gen, m, n):
+def check_dct_mm(gen, m, n, d=None, offset=0, quiet=False):
+    """K4 against its plain version, rtol 1e-5 atol 1e-5: with the
+    Chebyshev constants of width n (d None), else a random (n, d) matrix
+    and scale with entries of the DCT's size (1 / sqrt(n))."""
     import torch
     from repro_torch.embedders.basis import cheb_kernel_constants
     from repro_torch.kernels import dct_mm, ref
-    pre, mat, scale = (torch.as_tensor(t).cuda() for t in
-                       cheb_kernel_constants(n, (-1.0, 1.0), "lebesgue"))
-    f = (torch.randn((m, n), generator=gen).cuda() * pre).contiguous()
+    if d is None:
+        pre, mat, scale = (torch.as_tensor(t) for t in cheb_kernel_constants(
+            n, (-1.0, 1.0), "lebesgue"))
+        f = torch.randn((m, n), generator=gen) * pre
+    else:
+        mat = torch.randn((n, d), generator=gen) / n ** 0.5
+        scale = torch.rand((d,), generator=gen)
+        f = torch.randn((m, n), generator=gen)
+    f, mat, scale = (on_card(t.contiguous(), offset) for t in (f, mat, scale))
     out = dct_mm.dct_mm(f, mat, scale)
     want = ref.dct_mm_ref(f, mat, scale)
     torch.cuda.synchronize()
     if not torch.allclose(out, want, rtol=1e-5, atol=1e-5):
-        raise AssertionError(f"dct_mm {m}x{n}: max err "
+        raise AssertionError(f"dct_mm {m}x{n}x{d}: max err "
                              f"{(out - want).abs().max().item()}")
     err = float((out - want).abs().max())
-    log(f"  dct_mm {m}x{n}: ok (max err {err:.3g})")
+    if not quiet:
+        log(f"  dct_mm {m}x{n}x{d or n} offset {offset}: ok (max err "
+            f"{err:.3g})")
     return err
+
+
+def check_small_gemm_shapes(gen):
+    """K1 and K4 (csrc/small_gemm.cuh) at every m x depth x columns of the
+    plan's edges, aligned and 1 float past alignment (the scalar path)."""
+    n_cases, worst = 0, 0.0
+    for m in (1, 8, 32, 33, 128, 256, 300):
+        for cols in (17, 32, 40, 64):
+            for depth in (17, 50, 64, 96, 200):
+                for offset in (0, 1):
+                    worst = max(worst, check_hash_mm(
+                        gen, m, depth, cols, offset=offset, quiet=True))
+                    worst = max(worst, check_dct_mm(
+                        gen, m, depth, cols, offset=offset, quiet=True))
+                    n_cases += 2
+    log(f"  hash_mm + dct_mm at m in (1, 8, 32, 33, 128, 256, 300) x "
+        f"columns in (17, 32, 40, 64) x depth in (17, 50, 64, 96, 200), "
+        f"aligned and offset by 1 float: {n_cases} cases ok (max err "
+        f"{worst:.3g})")
+
+
+def check_batch_invariance(gen):
+    """K1 and K4: a 256-row call against its 8-, 33- and 128-row slices
+    (each on its own plan), bit for bit."""
+    import torch
+    from repro_torch.kernels import dct_mm, hash_mm
+    x = torch.randn((256, 64), generator=gen).cuda()
+    a = torch.randn((64, 32), generator=gen).cuda()
+    b = torch.rand((32,), generator=gen).cuda()
+    mt = torch.randn((64, 64), generator=gen).cuda()
+    scale = torch.rand((64,), generator=gen).cuda()
+    h, p = hash_mm.hash_mm(x, a, b, 4.0)
+    e = dct_mm.dct_mm(x, mt, scale)
+    for lo, hi in ((0, 8), (5, 38), (128, 256)):
+        hs, ps = hash_mm.hash_mm(x[lo:hi], a, b, 4.0)
+        es = dct_mm.dct_mm(x[lo:hi], mt, scale)
+        if not (torch.equal(hs, h[lo:hi]) and torch.equal(bits(ps),
+                                                          bits(p[lo:hi]))
+                and torch.equal(bits(es), bits(e[lo:hi]))):
+            raise AssertionError(f"batch invariance: rows {lo}:{hi} of a "
+                                 "256-row call differ from the slice's call")
+    torch.cuda.synchronize()
+    log("  hash_mm + dct_mm: rows 0:8, 5:38 and 128:256 of a 256-row call "
+        "bit-identical to the slices' own calls")
 
 
 def _distinct(dp, dfull, k):
@@ -362,7 +464,7 @@ def check_rerank(gen, b, c, n=64, p=2.0):
     if not torch.allclose(d[fin], want[fin], rtol=1e-5, atol=1e-6):
         raise AssertionError(f"rerank {b}x{c}x{n} p={p}: max err "
                              f"{(d[fin] - want[fin]).abs().max().item()}")
-    err = float((d[fin] - want[fin]).abs().max())
+    err = float((d[fin] - want[fin]).abs().max()) if fin.any() else 0.0
     log(f"  rerank B={b} C={c} N={n} p={p}: ok (max err {err:.3g})")
     return err
 
@@ -591,6 +693,66 @@ def int8_parity_run():
 # -- phase 5: timings ---------------------------------------------------------
 
 
+FLOOR_SRC = ROOT / "tools" / "launch_floor.cu"
+
+
+def start_floor_build():
+    """Start nvcc on the launch floor (tools/launch_floor.cu, an empty
+    kernel behind K1's C interface) beside the kernels' own builds; None
+    in a checkout without it."""
+    from repro_torch.kernels import _build
+    if not FLOOR_SRC.exists():
+        return None
+    out = ROOT / "build" / "launch_floor" / "launch_floor.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+           "-o", str(out), str(FLOOR_SRC)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def finish_floor_build(job):
+    """The floor's launcher, once nvcc is done; None without a floor."""
+    import ctypes
+    if job is None:
+        return None
+    proc, out = job
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc launch_floor:\n{text}")
+    fn = ctypes.CDLL(str(out)).launch_floor_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, ctypes.c_float, i, i, i, i, i, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_floor(fn, x, a, b, r):
+    """The route's floor: K1's launcher arguments (pointers from
+    data_ptr(), the stream from dispatch.stream_handle) through ctypes to
+    an empty kernel, the return code checked -- what any wrapper pays
+    before its checks, allocations and the kernel's own work."""
+    import torch
+    from repro_torch.kernels import dispatch
+    if fn is None:
+        log("  timing launch_floor: not in this checkout")
+        return None
+    m, n = x.shape
+    k = a.shape[1]
+    h = torch.empty((m, k), dtype=torch.int32, device=x.device)
+    p = torch.empty((m, k), device=x.device)
+
+    def call():
+        code = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), r, m, n, k, 1,
+                  1, h.data_ptr(), p.data_ptr(), dispatch.stream_handle(x))
+        if code != 0:
+            raise RuntimeError(f"launch_floor: CUDA error {code}")
+    return dict(shape="empty kernel, 1 block of 32 threads, K1's 12 "
+                "arguments, launched as K1", ms=time_ms(call),
+                **host_times(call),
+                bytes=0, ops=0)
+
+
 def _k2_record(q, db, cands, kk):
     import torch
     from repro_torch.kernels import fused_query, ref
@@ -608,10 +770,11 @@ def _k2_record(q, db, cands, kk):
         shape=f"q ({nq}, 64), db {tuple(db.shape)}, ids ({nq}, {c}), "
               f"k={kk}; {n_valid} valid candidates, {rows_needed} rows",
         ms=time_ms(lambda: fused_query.fused_query_topk(q, db, cands, kk)),
-        host_ms=host_ms(lambda: fused_query.fused_query_topk(q, db, cands,
-                                                              kk)),
+        **host_times(lambda: fused_query.fused_query_topk(q, db, cands,
+                                                          kk)),
         plain_ms=time_ms(lambda: ref.fused_query_topk_ref(q, db, cands, kk)),
         library_ms=time_ms(lib_fused),
+        **host_times(lib_fused, "library_"),
         bytes=4 * (nq * 64 + nq * c + rows_needed * 64 + 2 * nq * kk),
         ops=3 * 64 * n_valid)
 
@@ -637,40 +800,48 @@ def _k5_record(qq, codes, scale, qids, kq, kw):
               f"{rows_needed} rows",
         ms=time_ms(lambda: quantized_query.quantized_query_topk(
             qq, codes, scale, qids, kq, **kw)),
-        host_ms=host_ms(lambda: quantized_query.quantized_query_topk(
+        **host_times(lambda: quantized_query.quantized_query_topk(
             qq, codes, scale, qids, kq, **kw)),
         plain_ms=time_ms(lambda: ref.quantized_topk_ref(qq, codes, scale,
                                                         qids, kq, **kw)),
         library_ms=time_ms(lib_quantized),
+        **host_times(lib_quantized, "library_"),
         bytes=4 * (nq * 64 + nq * c + 1 + 2 * nq * kq)
         + rows_needed * 64 * codes.element_size(),
         ops=3 * 64 * n_valid)
 
 
-def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
+def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn):
     import torch
     from repro_torch.embedders.basis import cheb_kernel_constants
     from repro_torch.kernels import (dct_mm, hash_mm, merge, ref, rerank,
                                      simhash_pack)
 
     rec = {}
-    # K1 at a 32-row query micro-batch: X (32, 64), A (64, 32)
-    m, n, k, r = 32, 64, 32, 4.0
-    x = torch.randn((m, n), generator=gen).cuda() * 0.5
+    # K1 at a 32-row query micro-batch (the profiled batch), at the loop's
+    # 128-row chunk and at the 256-row insert chunk: X (m, 64), A (64, 32)
+    n, k, r = 64, 32, 4.0
     a = torch.randn((n, k), generator=gen).cuda()
     b = torch.rand((k,), generator=gen).cuda()
+    for m in (32, 128, 256):
+        x = torch.randn((m, n), generator=gen).cuda() * 0.5
 
-    def lib_hash():
-        pj = torch.matmul(x, a) / r + b
-        return torch.floor(pj).to(torch.int32), pj
-    rec["hash_mm"] = dict(
-        shape=f"X ({m}, {n}) @ A ({n}, {k})",
-        ms=time_ms(lambda: hash_mm.hash_mm(x, a, b, r)),
-        host_ms=host_ms(lambda: hash_mm.hash_mm(x, a, b, r)),
-        plain_ms=time_ms(lambda: ref.hash_mm_proj_ref(x, a, b, r)),
-        library_ms=time_ms(lib_hash),
-        bytes=4 * (m * n + n * k + k + 2 * m * k),
-        ops=2 * m * n * k + 2 * m * k)
+        def lib_hash(x=x):
+            pj = torch.matmul(x, a) / r + b
+            return torch.floor(pj).to(torch.int32), pj
+        rec["hash_mm" if m == 32 else f"hash_mm@{m}"] = dict(
+            shape=f"X ({m}, {n}) @ A ({n}, {k})",
+            ms=time_ms(lambda x=x: hash_mm.hash_mm(x, a, b, r)),
+            **host_times(lambda x=x: hash_mm.hash_mm(x, a, b, r)),
+            plain_ms=time_ms(lambda x=x: ref.hash_mm_proj_ref(x, a, b, r)),
+            library_ms=time_ms(lib_hash),
+            **host_times(lib_hash, "library_"),
+            bytes=4 * (m * n + n * k + k + 2 * m * k),
+            ops=2 * m * n * k + 2 * m * k)
+        if m == 32:
+            floor = launch_floor(floor_fn, x, a, b, r)
+            if floor:
+                rec["launch_floor"] = floor
 
     # K4 at one embed chunk: F (128, 64), Mt (64, 64)
     m = 128
@@ -680,9 +851,10 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
     rec["dct_mm"] = dict(
         shape=f"F ({m}, 64) @ Mt (64, 64)",
         ms=time_ms(lambda: dct_mm.dct_mm(f, mat, scale)),
-        host_ms=host_ms(lambda: dct_mm.dct_mm(f, mat, scale)),
+        **host_times(lambda: dct_mm.dct_mm(f, mat, scale)),
         plain_ms=time_ms(lambda: ref.dct_mm_ref(f, mat, scale)),
         library_ms=time_ms(lambda: torch.matmul(f, mat) * scale),
+        **host_times(lambda: torch.matmul(f, mat) * scale, "library_"),
         bytes=4 * (m * 64 + 64 * 64 + 64 + m * 64),
         ops=2 * m * 64 * 64 + m * 64)
 
@@ -714,9 +886,10 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
     rec["merge"] = dict(
         shape=f"({rows}, {pm}) pairs -> P={pw}, top {kk}",
         ms=time_ms(lambda: merge.sort_pairs_kernel(d, i, n_out=kk)),
-        host_ms=host_ms(lambda: merge.sort_pairs_kernel(d, i, n_out=kk)),
+        **host_times(lambda: merge.sort_pairs_kernel(d, i, n_out=kk)),
         plain_ms=time_ms(lambda: ref.sort_pairs(d, i)),
         library_ms=time_ms(lib_sort),
+        **host_times(lib_sort, "library_"),
         bytes=8 * rows * pm + 8 * rows * kk,
         ops=cmp_ops)
 
@@ -743,9 +916,10 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
         shape=f"q ({b}, 64), emb ({b}, {c}, 64), ids ({b}, {c}); "
               f"{r_valid} valid",
         ms=time_ms(lambda: rerank.rerank_distances(rq, rrows, rgids)),
-        host_ms=host_ms(lambda: rerank.rerank_distances(rq, rrows, rgids)),
+        **host_times(lambda: rerank.rerank_distances(rq, rrows, rgids)),
         plain_ms=time_ms(lambda: ref.rerank_ref(rq, rrows, rgids)),
         library_ms=time_ms(lib_rerank),
+        **host_times(lib_rerank, "library_"),
         bytes=4 * (b * 64 + r_valid * 64 + b * c + b * c),
         ops=3 * 64 * r_valid)
 
@@ -762,9 +936,10 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
     rec["simhash_pack"] = dict(
         shape=f"X ({m}, {n}) @ A ({n}, {k}) -> ({m}, {k // 32}) words",
         ms=time_ms(lambda: simhash_pack.simhash_pack(x, a)),
-        host_ms=host_ms(lambda: simhash_pack.simhash_pack(x, a)),
+        **host_times(lambda: simhash_pack.simhash_pack(x, a)),
         plain_ms=time_ms(lambda: ref.simhash_pack_ref(x, a)),
         library_ms=time_ms(lib_simhash),
+        **host_times(lib_simhash, "library_"),
         bytes=4 * (m * n + n * k + m * k // 32),
         ops=2 * m * n * k)
 
@@ -780,8 +955,7 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs):
         "name": "merge (int8 fan-in)",
         "shape": f"({rows}, {pm}) pairs -> P=16384, top {kq8}",
         "ms": time_ms(lambda: merge.sort_pairs_kernel(d8, i8, n_out=kq8)),
-        "host_ms": host_ms(lambda: merge.sort_pairs_kernel(d8, i8,
-                                                           n_out=kq8))}))
+        **host_times(lambda: merge.sort_pairs_kernel(d8, i8, n_out=kq8))}))
 
     for name, t in rec.items():
         bms, by = bound_ms(t["bytes"], t["ops"])
@@ -843,6 +1017,14 @@ def profile_batches(sv, n_batches=2, rows=32):
             which = ("fused_query" if "row_topk_kernel<float" in e["name"]
                      else "quantized_query")
             scorer[which] += e["dur"] / 1e3 / n_batches
+    # K1 and K4 are small_gemm_kernel (or, before it, gemm_epilogue_kernel)
+    # with the hash or the scale epilogue
+    gemms = {"hash_mm": 0.0, "dct_mm": 0.0}
+    for e in kern:
+        for name, epi in (("hash_mm", "HashEpilogue"),
+                          ("dct_mm", "ScaleEpilogue")):
+            if epi in e["name"]:
+                gemms[name] += e["dur"] / 1e3 / n_batches
     res = {"rows": rows, "segments": len(sv.index.segments),
            "wall_ms": wall * 1e3,
            "kernel_ms": busy_us / 1e3 if kern else "not measured",
@@ -851,6 +1033,7 @@ def profile_batches(sv, n_batches=2, rows=32):
                                             if gather_s else None),
            "busy_share": busy_us / 1e6 / wall if kern else "not measured",
            "scorer_ms_per_batch": scorer,
+           "hash_dct_ms_per_batch": gemms,
            "top_kernels_ms_per_batch": {k: v / 1e3 / n_batches
                                         for k, v in top}}
     log("  profile " + json.dumps(res))
@@ -974,7 +1157,9 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
+    floor_job = start_floor_build()
     spent = _build.build()
+    floor_fn = finish_floor_build(floor_job)
     log(f"[2/7] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
@@ -988,13 +1173,15 @@ def main(argv=None) -> int:
         k2_inputs = parity_run()
         captured = int8_parity_run()
         log(f"[5/7] timings, {smi}")
-        rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {})
+        rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
+                      floor_fn)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
     log("[3/7] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
-        "|proj - round(proj)| > 1e-4; dct_mm rtol 1e-5 atol 1e-5; "
+        "|proj - round(proj)| > 1e-4, bit-equal across batch sizes; dct_mm "
+        "rtol 1e-5 atol 1e-5, bit-equal across batch sizes; "
         "fused_query distances rtol 1e-5 atol 1e-6 and ids equal at "
         "distinct distances; merge bit-identical; quantized_query int8 at "
         "p in {1, 2} bit-identical, else as fused_query; rerank rtol 1e-5 "
@@ -1008,6 +1195,10 @@ def main(argv=None) -> int:
     errs["dct_mm"] = check_dct_mm(gen, 128, 64)
     check_dct_mm(gen, 5, 64)
     check_dct_mm(gen, 130, 33)
+    check_hash_mm(gen, 32, 64, 32, offset=1)        # unaligned: scalar path
+    check_dct_mm(gen, 128, 64, offset=2)
+    check_small_gemm_shapes(gen)
+    check_batch_invariance(gen)
     errs["fused_query"] = check_fused_query(gen, 32, 64, 1024, 1024, 10)
     check_fused_query(gen, 128, 64, 1024, 1024, 10)
     check_fused_query(gen, 128, 64, 1024, 1024, 40)
@@ -1079,7 +1270,8 @@ def main(argv=None) -> int:
 
     log("[5/7] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
-    rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs)
+    rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
+                  floor_fn)
 
     log(f"[6/7] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")

@@ -1,14 +1,12 @@
-// Tiled fp32 SIMT GEMM skeleton shared by K1 (hash_mm.cu), K4 (dct_mm.cu)
-// and K7 (simhash_pack.cu): C[i, j] = epilogue(i, j, sum_t A[i, t] * B[t, j]).
-// The 32 lanes of a warp hold 32 consecutive columns of one row, and a warp
-// calls the epilogue together or not at all when n % 32 == 0 (K7 relies on
-// it for a warp-wide ballot).
+// Tiled fp32 SIMT GEMM skeleton of K7 (simhash_pack.cu), the only kernel
+// that uses it: C[i, j] = epilogue(i, j, sum_t A[i, t] * B[t, j]); K1 and K4
+// use small_gemm.cuh.  The 32 lanes of a warp hold 32 consecutive
+// columns of one row, and a warp calls the epilogue together or not at all
+// when n % 32 == 0 (K7 relies on it for a warp-wide ballot).
 //
 // Every output element is one thread's sequential fmaf chain over
 // t = 0 .. K-1 in order (no split-K, no tensor cores, no TF32), so a row's
-// result does not depend on how many rows share the launch: an item hashed
-// in a 256-row insert chunk and the same vector hashed in an 8-row query
-// chunk land in the same bucket, bit for bit.
+// result does not depend on how many rows share the launch.
 #pragma once
 
 #include "common.cuh"

@@ -2,7 +2,8 @@
 
 Launches ``csrc/dct_mm.cu`` (the port of ``repro/kernels/dct_mm.py``).
 Its plain version is :func:`repro_torch.kernels.ref.dct_mm_ref`,
-re-exported here as ``plain``.
+re-exported here as ``plain``.  Its grid comes from
+:func:`repro_torch.kernels.small_gemm.plan`, shared with K1.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from . import _build, dispatch
 from .ref import dct_mm_ref as plain  # noqa: F401  (the plain version)
+from .small_gemm import plan as _plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -21,8 +23,8 @@ def _launcher():
     lib = _build.library("dct_mm")
     fn = lib.dct_mm_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -41,12 +43,14 @@ def dct_mm(fvals: torch.Tensor, dct_t: torch.Tensor, scale: torch.Tensor
                          f"{tuple(dct_t.shape)}, scale {tuple(scale.shape)}")
     m, n = fvals.shape
     d = dct_t.shape[1]
-    out = torch.empty((m, d), dtype=f32, device=fvals.device)
+    out = fvals.new_empty((m, d))     # f32, like fvals; cheaper on the host
     if m == 0 or d == 0:
         return out
+    pf, pm, ps = fvals.data_ptr(), dct_t.data_ptr(), scale.data_ptr()
+    plan = _plan(m, n, d, (pf | pm | ps) % 16 == 0)
     lib, fn = _launcher()
-    code = fn(fvals.data_ptr(), dct_t.data_ptr(), scale.data_ptr(), m, n, d,
-              out.data_ptr(), dispatch.stream_handle(fvals))
+    code = fn(pf, pm, ps, m, n, d, plan.rows, plan.vec, out.data_ptr(),
+              dispatch.stream_handle(fvals))
     _build.check(lib, "dct_mm", code)
     dispatch.launches["dct_mm"] += 1
     return out

@@ -81,5 +81,8 @@ def check_cuda_args(op: str, *tensors: torch.Tensor,
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as an integer handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as an integer handle.
+    Reads the raw handle (the call PyTorch's own compiled kernels launch
+    with) rather than building a ``torch.cuda.Stream`` object per launch;
+    it follows ``torch.cuda.stream(...)`` and graph capture alike."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

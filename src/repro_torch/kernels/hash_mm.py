@@ -2,7 +2,8 @@
 
 Launches ``csrc/hash_mm.cu`` (the port of ``repro/kernels/hash_mm.py``).
 Its plain version is :func:`repro_torch.kernels.ref.hash_mm_proj_ref`,
-re-exported here as ``plain``.
+re-exported here as ``plain``.  Its grid comes from
+:func:`repro_torch.kernels.small_gemm.plan`, shared with K4.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from . import _build, dispatch
 from .ref import hash_mm_proj_ref as plain  # noqa: F401  (the plain version)
+from .small_gemm import plan as _plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -22,6 +24,7 @@ def _launcher():
     fn = lib.hash_mm_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -39,12 +42,15 @@ def hash_mm(x: torch.Tensor, alpha: torch.Tensor, b: torch.Tensor, r: float
                          f"{tuple(alpha.shape)}, b {tuple(b.shape)}")
     m, n = x.shape
     k = alpha.shape[1]
-    h = torch.empty((m, k), dtype=torch.int32, device=x.device)
-    proj = torch.empty((m, k), dtype=f32, device=x.device)
+    # new_empty: cheaper on the host than torch.empty(..., device=...)
+    h = x.new_empty((m, k), dtype=torch.int32)
+    proj = x.new_empty((m, k))
     if m == 0 or k == 0:
         return h, proj
+    px, pa, pb = x.data_ptr(), alpha.data_ptr(), b.data_ptr()
+    plan = _plan(m, n, k, (px | pa | pb) % 16 == 0)
     lib, fn = _launcher()
-    code = fn(x.data_ptr(), alpha.data_ptr(), b.data_ptr(), float(r), m, n, k,
+    code = fn(px, pa, pb, float(r), m, n, k, plan.rows, plan.vec,
               h.data_ptr(), proj.data_ptr(), dispatch.stream_handle(x))
     _build.check(lib, "hash_mm", code)
     dispatch.launches["hash_mm"] += 1

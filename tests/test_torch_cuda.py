@@ -56,6 +56,57 @@ def test_dct_mm_kernel(gen):
                                atol=1e-5)
 
 
+def _on_card(t, offset):
+    """``t`` on the card, ``offset`` elements past an aligned base."""
+    flat = torch.empty(offset + t.numel(), dtype=t.dtype, device="cuda")
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("k", [17, 50, 64, 96, 200])
+@pytest.mark.parametrize("n", [17, 32, 40, 64])
+@pytest.mark.parametrize("m", [1, 8, 32, 33, 128, 256, 300])
+def test_small_gemm_kernels_shapes(gen, m, n, k):
+    """K1 and K4 (csrc/small_gemm.cuh) at the plan's edges, on aligned
+    views and on views 1 float past alignment (the scalar path): K1's
+    projections rtol 1e-6 atol 1e-5 and hashes equal away from a bucket
+    boundary, K4 rtol 1e-5 atol 1e-5."""
+    for offset in (0, 1):
+        x = _on_card(torch.randn((m, k), generator=gen) * 0.5, offset)
+        a = _on_card(torch.randn((k, n), generator=gen), offset)
+        b = _on_card(torch.rand((n,), generator=gen), offset)
+        h, p = ops.pstable_hash_proj(x, a, b, 4.0)
+        hp, pp = ref.hash_mm_proj_ref(x, a, b, 4.0)
+        torch.testing.assert_close(p, pp, rtol=1e-6, atol=1e-5)
+        safe = (pp - torch.round(pp)).abs() > 1e-4
+        assert torch.equal(h[safe], hp[safe])
+        mt = _on_card(torch.randn((k, n), generator=gen) / k ** 0.5, offset)
+        s = _on_card(torch.rand((n,), generator=gen), offset)
+        torch.testing.assert_close(ops.cheb_embed(x, mt, s),
+                                   ref.dct_mm_ref(x, mt, s), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["hash_mm", "dct_mm"])
+def test_small_gemm_kernels_batch_invariant(gen, kernel):
+    """A 256-row call against its 8-, 33- and 128-row slices, each on its
+    own plan: bit for bit."""
+    x = torch.randn((256, 64), generator=gen).cuda()
+    a = torch.randn((64, 32 if kernel == "hash_mm" else 64),
+                    generator=gen).cuda()
+    v = torch.rand((a.shape[1],), generator=gen).cuda()
+
+    def call(rows):
+        if kernel == "hash_mm":
+            h, p = ops.pstable_hash_proj(rows, a, v, 4.0)
+            return torch.cat([h, p.view(torch.int32)], dim=1)
+        return ops.cheb_embed(rows, a, v).view(torch.int32)
+    full = call(x)
+    for lo, hi in ((0, 8), (5, 38), (128, 256)):
+        assert torch.equal(call(x[lo:hi]), full[lo:hi]), (lo, hi)
+
+
 @pytest.mark.parametrize("p", [1.0, 2.0, 1.5])
 def test_fused_query_kernel(gen, p):
     q = torch.randn((9, 48), generator=gen).cuda()

@@ -1,4 +1,6 @@
-"""The launch plan K2 and K5 share (``kernels/fused_query._plan``).
+"""The launch plans of the port's kernels: the one K2 and K5 share
+(``kernels/fused_query._plan``) and the small GEMM's of K1 and K4
+(``kernels/small_gemm.plan``, for ``csrc/small_gemm.cuh``).
 
 A row of C candidate slots is split across a cluster of G blocks of S
 slots each, and each candidate row is read by L lanes.  On the CPU the
@@ -8,11 +10,14 @@ shared memory within a block's limit for every (C, N) the wrappers
 accept, and a vector width that covers the row or the scalar path.
 """
 
+from collections import Counter
+
 import pytest
 
 pytest.importorskip("torch")
 
 from repro_torch.kernels import fused_query  # noqa: E402
+from repro_torch.kernels import small_gemm  # noqa: E402
 from repro_torch.kernels.fused_query import (KP, SMEM_LIMIT,  # noqa: E402
                                              SMEM_PER_BLOCK, _plan)
 
@@ -117,3 +122,101 @@ def test_plan_path_shapes_lanes():
 def test_plan_unaligned_table_takes_the_scalar_path():
     assert _plan(32, 1024, 64, 4).vec
     assert not _plan(32, 1024, 64, 4, aligned=False).vec
+
+
+# -- K1 / K4: the small GEMM (csrc/small_gemm.cuh) ---------------------------
+
+GEMM_MS = [1, 8, 32, 33, 128, 256, 300]
+GEMM_NS = [17, 32, 40, 64]
+GEMM_KS = [17, 50, 64, 96, 200]
+H100_SMS = 132
+# The kernel's layout, as csrc/small_gemm.cuh lays it out: kDepth values of
+# depth per round, one or (beyond kDepth) two buffers of the block's rows
+# of X and of A's column tile, then the tile's entries of the vector.
+DEPTH = 64
+SMEM_NO_OPT_IN = 48 * 1024   # dynamic shared bytes a block takes as is
+
+
+def _grid(m, n, plan):
+    """(column tiles, blocks) of the kernel's 1-D grid."""
+    col_tiles = -(-n // small_gemm.COLS)
+    return col_tiles, col_tiles * -(-m // plan.rows)
+
+
+@pytest.mark.parametrize("k", GEMM_KS)
+@pytest.mark.parametrize("n", GEMM_NS)
+@pytest.mark.parametrize("m", GEMM_MS)
+def test_gemm_plan_covers_every_output_once(m, n, k):
+    """The kernel's walk: block b owns rows from (b // col_tiles) * rows
+    and columns from (b % col_tiles) * COLS, thread (lane, y < rows) the
+    output (row0 + y, col0 + lane); every output of the (m, n) result is
+    owned by exactly one thread."""
+    plan = small_gemm.plan(m, k, n)
+    col_tiles, blocks = _grid(m, n, plan)
+    seen = Counter()
+    for blk in range(blocks):
+        row0 = (blk // col_tiles) * plan.rows
+        col0 = (blk % col_tiles) * small_gemm.COLS
+        for y in range(plan.rows):
+            for lane in range(small_gemm.COLS):
+                if row0 + y < m and col0 + lane < n:
+                    seen[(row0 + y, col0 + lane)] += 1
+    assert len(seen) == m * n
+    assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("n", GEMM_NS)
+@pytest.mark.parametrize("m", GEMM_MS)
+def test_gemm_plan_fits_one_wave(m, n):
+    """At most one block per SM, at most one row a warp (8 warps a block,
+    the kernel's launch bounds), rows a power of two, and no more rows a
+    block than it takes to bring the grid down to the target."""
+    for k in GEMM_KS:
+        plan = small_gemm.plan(m, k, n)
+        col_tiles, blocks = _grid(m, n, plan)
+        assert blocks <= H100_SMS
+        assert 1 <= plan.rows <= small_gemm.MAX_ROWS == 8
+        assert plan.rows & (plan.rows - 1) == 0
+        if plan.rows > 1:
+            assert col_tiles * -(-m // (plan.rows // 2)) \
+                > small_gemm.TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("m,k,n,rows,blocks", [
+    (32, 64, 32, 1, 32),      # K1, a query micro-batch
+    (128, 64, 32, 2, 64),     # K1, the loop's chunk
+    (256, 64, 32, 4, 64),     # K1, an insert chunk
+    (128, 64, 64, 4, 64),     # K4, an embed chunk
+])
+def test_gemm_plan_spreads_the_path_shapes(m, k, n, rows, blocks):
+    """The path's shapes take tens of SMs (one tile of 32 x 32 a block
+    left 1 or 8 busy)."""
+    plan = small_gemm.plan(m, k, n)
+    assert (plan.rows, _grid(m, n, plan)[1]) == (rows, blocks)
+    assert plan.vec
+
+
+@pytest.mark.parametrize("k", [0, 1, 4, 17, 50, 63, 64, 65, 96, 128, 200,
+                               4096, 1_000_000])
+def test_gemm_plan_shared_memory_within_the_block_limit(k):
+    """Every depth the wrappers accept: one buffer up to 64, two beyond
+    (the next tile's copies in flight), within what a block takes without
+    opting in."""
+    for m in GEMM_MS + [100_000]:
+        for n in GEMM_NS + [1, 1000]:
+            plan = small_gemm.plan(m, k, n)
+            stages = 2 if k > DEPTH else 1
+            smem = 4 * (stages * (plan.rows * DEPTH
+                                  + DEPTH * small_gemm.COLS)
+                        + small_gemm.COLS)
+            assert smem <= SMEM_NO_OPT_IN
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", GEMM_NS + [4, 36])
+@pytest.mark.parametrize("k", GEMM_KS + [4, 16])
+def test_gemm_plan_vector_path_only_when_aligned(k, n, aligned):
+    """16-byte copies only when every pointer is aligned and both row
+    lengths (k for X, n for A and the column vector) are multiples of 4."""
+    assert small_gemm.plan(32, k, n, aligned).vec == (
+        aligned and k % 4 == 0 and n % 4 == 0)
