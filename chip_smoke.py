@@ -11,7 +11,10 @@ each of which raises on failure (the script then exits non-zero):
    and beside them the launch floor (``tools/launch_floor.cu``);
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, at the main path's shapes and at edge shapes (K1 and K4 also on
-   unaligned views, and bit for bit across batch sizes);
+   unaligned views, and bit for bit across batch sizes; K3's two routes
+   bit for bit, the select route up to 41,280-pair rows and one row of
+   100,000, on duplicate-heavy rows and through ``ops.merge_topk``; K6 at
+   five widths and three metrics, aligned and not);
 4. parity: the l2-basis pipeline at 8,192 items on the CPU (plain
    versions) and on the card (kernels) with one injected family, at fp32
    and at the int8 tier (whose gids must be equal);
@@ -20,8 +23,10 @@ each of which raises on failure (the script then exits non-zero):
    the host time per call of the kernel's wrapper and of the library
    call, between CUDA events and on the host clock; K2 and K5 at both
    micro-batch shapes the path launches (32 and 128 rows), K1 at 32, 128
-   and 256 rows; and the launch floor, an empty kernel called through
-   K1's ctypes route and launched as K1 is;
+   and 256 rows, K3 at the fp32 and int8 fan-ins, at 1,032 int8 segments
+   and at the survivor sort (with ``torch.topk`` on int64 keys beside the
+   two-sort library call); and the launch floor, an empty kernel called
+   through K1's ctypes route and launched as K1 is;
 6. main path: ``repro_torch.launch.serve`` filled to 262,144 items
    (256 sealed segments), then 20 demo steps; launch counts read around it;
 7. int8 path: the same run with ``precision="int8"`` (phase 6's tenant
@@ -35,9 +40,15 @@ a record per kernel, and ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --timings-only
 
 runs phases 1, 2, 4 and 5 and ends with the card's line and one JSON
-object of timing records.  Copied to the root of another checkout (an
-earlier commit, say), it times that checkout's kernels on the same inputs,
-so two versions can be compared in turns within one machine.
+object of timing records, and
+
+    python3 chip_smoke.py --paths-only
+
+runs phases 1, 2, 6 and 7 and ends with the card's line and one JSON
+object of the paths' profiles and reports.  Copied to the root of another
+checkout (an earlier commit, say), either times or profiles that
+checkout's kernels on the same inputs, so two versions can be compared in
+turns within one machine.
 """
 
 from __future__ import annotations
@@ -62,7 +73,6 @@ HOST_CALLS, HOST_ROUNDS = 100, 9
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 
-INT8_MAX_SEGMENTS = 409          # K3 holds <= 16,384 pairs: 409 x kq = 40
 SIMHASH_BATCH, SIMHASH_BITS = 512, 1024   # bench_hash_throughput's shape
 
 REPLACES = {
@@ -446,15 +456,19 @@ def check_query_ties(gen, nq, dtype, n=64, c=1024):
         f"lower slot first, ids {want}")
 
 
-def check_rerank(gen, b, c, n=64, p=2.0):
+def check_rerank(gen, b, c, n=64, p=2.0, offset=0, invalid_rows=0,
+                 quiet=False):
     """K6 against its plain version: rtol 1e-5 atol 1e-6, +inf exactly
-    where the id is < 0."""
+    where the id is < 0 (rows [0, invalid_rows) all invalid; ``offset``
+    floats past alignment takes the scalar path)."""
     import torch
     from repro_torch.kernels import ref, rerank
-    q = torch.randn((b, n), generator=gen).cuda()
-    emb = torch.randn((b, c, n), generator=gen).cuda()
+    q = on_card(torch.randn((b, n), generator=gen), offset)
+    emb = on_card(torch.randn((b, c, n), generator=gen), offset)
     ids = torch.randint(-1, 10 * c, (b, c), generator=gen,
-                        dtype=torch.int32).cuda()
+                        dtype=torch.int32)
+    ids[:invalid_rows] = -1
+    ids = ids.cuda()
     d = rerank.rerank_distances(q, emb, ids, p=p)
     want = ref.rerank_ref(q, emb, ids, p)
     torch.cuda.synchronize()
@@ -465,8 +479,25 @@ def check_rerank(gen, b, c, n=64, p=2.0):
         raise AssertionError(f"rerank {b}x{c}x{n} p={p}: max err "
                              f"{(d[fin] - want[fin]).abs().max().item()}")
     err = float((d[fin] - want[fin]).abs().max()) if fin.any() else 0.0
-    log(f"  rerank B={b} C={c} N={n} p={p}: ok (max err {err:.3g})")
+    if not quiet:
+        log(f"  rerank B={b} C={c} N={n} p={p}: ok (max err {err:.3g})")
     return err
+
+
+def check_rerank_shapes(gen):
+    """K6 at p in {1, 2, 1.5} x N in {3, 48, 64, 100, 200}, on aligned
+    views and 1 float past alignment, two all-invalid rows each."""
+    n_cases, worst = 0, 0.0
+    for p in (1.0, 2.0, 1.5):
+        for n in (3, 48, 64, 100, 200):
+            for offset in (0, 1):
+                worst = max(worst, check_rerank(
+                    gen, 37, 40, n=n, p=p, offset=offset, invalid_rows=2,
+                    quiet=True))
+                n_cases += 1
+    log(f"  rerank at p in (1, 2, 1.5) x N in (3, 48, 64, 100, 200), "
+        f"aligned and offset by 1 float, 2 all-invalid rows: {n_cases} "
+        f"cases ok (max err {worst:.3g})")
 
 
 def check_simhash(gen, m, n, k):
@@ -526,9 +557,111 @@ def check_merge(gen, rows, m, sorted_run=1, n_out=None, runs=None):
                 and torch.equal(is_[:, :n_out], ip)):
             raise AssertionError(f"merge {rows}x{m}: network != stable "
                                  "sorts")
-    log(f"  merge rows={rows} M={m} run={sorted_run} n_out={n_out}: "
-        "bit-identical")
+    log(f"  merge rows={rows} M={m} run={sorted_run} n_out={n_out} "
+        f"({merge.route(rows, m, n_out, sorted_run)} route): bit-identical")
     return 0.0
+
+
+def merge_pairs(gen, rows, m, kind="ties"):
+    """(d, i) on the CPU for the K3 checks: distances in steps of 1/50 (many
+    ties), every 13th +inf, ids in [-1, 4M); or a duplicate-heavy kind:
+    ``empty`` (every slot (+inf, -1)), ``equal`` (one distance, distinct
+    ids), ``repeated`` (three pairs, each many times), ``padded`` (a third
+    of the slots (+inf, -1)), ``negative`` (signed, -inf, no -0.0)."""
+    import torch
+    d = torch.round(torch.rand((rows, m), generator=gen) * 50) / 50
+    d[:, ::13] = torch.inf
+    i = torch.randint(-1, 4 * m, (rows, m), generator=gen, dtype=torch.int32)
+    if kind == "empty":
+        d[:] = torch.inf
+        i[:] = -1
+    elif kind == "equal":
+        d[:] = 0.5
+        i = torch.argsort(torch.rand((rows, m), generator=gen), dim=1).to(
+            torch.int32)
+    elif kind == "repeated":
+        pick = torch.randint(0, 3, (rows, m), generator=gen)
+        d, i = torch.gather(d[:, :3], 1, pick), torch.gather(i[:, :3], 1, pick)
+    elif kind == "padded":
+        d[:, 1::3] = torch.inf
+        i[:, 1::3] = -1
+    elif kind == "negative":
+        d = d - 0.5
+        d[d == 0] = 0.25
+        d[:, 5::29] = -torch.inf
+    return d, i
+
+
+def merge_topk_plain(d, i, k):
+    """ops.merge_topk's CPU route (mask, network, first k, -1 beside +inf),
+    run on the tensors' own device."""
+    import torch
+    from repro_torch.kernels import ref
+    sd, si = ref.sort_pairs(torch.where(i < 0, torch.inf, d), i)
+    sd, si = sd[:, :k], si[:, :k]
+    return sd, torch.where(torch.isinf(sd), -1, si)
+
+
+def check_merge_select(gen):
+    """K3's select route bit for bit against the plain network's first
+    n_out columns, and ops.merge_topk against its CPU route (on the CPU up
+    to 2^20 pairs, else the same code on the card), one launch each."""
+    import torch
+    from repro_torch.kernels import dispatch, merge, ops, ref
+
+    def same(a, b):
+        return (torch.equal(bits(a[0]), bits(b[0]))
+                and torch.equal(a[1], b[1]))
+
+    def one(d, i, ks, tag, topk=True):
+        dc, ic = on_card(d, tag[1]), on_card(i, tag[2])
+        sd, si = ref.sort_pairs(dc, ic)
+        # the CPU route's answer at the largest k; a smaller k's is its
+        # prefix
+        if topk and d.numel() <= 2 ** 20:
+            want = ops.merge_topk(d, i, max(ks))
+        elif topk:
+            want = merge_topk_plain(dc, ic, max(ks))
+        for k in ks:
+            if not same(merge.sort_pairs_kernel(dc, ic, n_out=k),
+                        (sd[:, :k], si[:, :k])):
+                raise AssertionError(f"merge select {tag} n_out={k}: not "
+                                     "bit-identical to the plain network")
+            if not topk:
+                continue
+            before = dispatch.launches["merge"]
+            got = ops.merge_topk(dc, ic, k)
+            if dispatch.launches["merge"] != before + 1:
+                raise AssertionError(f"merge_topk {tag}: not one launch")
+            if not same((got[0].to(want[0].device), got[1].to(
+                    want[1].device)), (want[0][:, :k], want[1][:, :k])):
+                raise AssertionError(f"merge_topk {tag} k={k}: not "
+                                     "bit-identical to its CPU route")
+        return 1
+    n = 0
+    for rows in (1, 32, 128, 300):
+        for m in (1, 5, 40, 2570, 10320, 41280):
+            ks = [k for k in (1, 10, 40, 128) if k <= m]
+            n += len(ks) * one(*merge_pairs(gen, rows, m), ks, (rows, 0, 0))
+    log(f"  merge select route, rows in (1, 32, 128, 300) x M in (1, 5, 40, "
+        f"2570, 10320, 41280) x n_out in (1, 10, 40, 128): {n} cases "
+        "bit-identical, merge_topk one launch and equal to its CPU route")
+    n = 0
+    for kind in ("empty", "equal", "repeated", "padded", "negative"):
+        for rows, m, k in ((32, 2570, 10), (128, 10320, 40), (128, 40, 10),
+                           (5, 300, 128), (128, 41280, 40),
+                           (3, 41280, 128)):
+            n += one(*merge_pairs(gen, rows, m, kind), [k], (rows, 0, 0),
+                     topk=kind != "negative")
+    for m in (37, 2570, 10320):
+        for offs in ((1, 1), (3, 3), (1, 2), (0, 3)):
+            n += one(*merge_pairs(gen, 7, m), [1, 10, 37], (7,) + offs)
+    d, i = merge_pairs(gen, 1, 100_000, "padded")
+    n += one(d, i, [10, 40, 128], (1, 0, 0))
+    log(f"  merge select route on duplicate-heavy rows (all (+inf, -1), "
+        f"equal distances, repeated pairs, a third empty), signed distances, "
+        f"views 1-3 floats past alignment and a 100,000-pair row: {n} inputs "
+        "bit-identical")
 
 
 # -- phase 4: CPU vs card parity ----------------------------------------------
@@ -811,10 +944,72 @@ def _k5_record(qq, codes, scale, qids, kq, kw):
         ops=3 * 64 * n_valid)
 
 
+def _fan_in(gen, rows, runs, k):
+    """A fan-in pool: ``runs`` segments' ascending lists of k distances a
+    row, ids a permutation shared by the rows."""
+    import torch
+    m = runs * k
+    d = torch.rand((rows, runs, k), generator=gen).sort(dim=-1).values
+    i = torch.randperm(4 * m, generator=gen)[:m].to(torch.int32)
+    return d.reshape(rows, m).cuda(), i.repeat(rows, 1).cuda()
+
+
+def _order_keys(d, i):
+    """int64 keys whose signed order is the (distance, id) order: the
+    float's bits with the magnitude flipped when negative, above id + 2^31."""
+    import torch
+    b = d.contiguous().view(torch.int32).long()
+    hi = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    return hi * 2 ** 32 + (i.long() + 2 ** 31)
+
+
+def _k3_record(d, i, n_out):
+    """K3 at one shape: the kernel (the select route in checkouts that have
+    it), the plain network, the two stable sorts kept as the yardstick
+    since the first timings (``library_ms``) and one ``torch.topk`` on
+    pre-built int64 keys (``library_topk_ms``, the same order).  Bound: the
+    function's work whatever computes it, each pair read once and n_out
+    written (8 bytes each), one compare a pair.  A checkout whose kernel
+    refuses the shape (the network held <= 16,384 pairs) gets no record."""
+    import torch
+    from repro_torch.kernels import merge, ref
+    rows, m = d.shape
+    keys = _order_keys(d, i)
+
+    def lib_sort():
+        o = torch.sort(i, dim=-1, stable=True).indices
+        d1 = torch.gather(d, 1, o)
+        o2 = torch.sort(d1, dim=-1, stable=True).indices
+        return torch.gather(d1, 1, o2), torch.gather(i, 1, o2)
+    big = rows * ref.next_pow2(m) > 2 ** 20   # the plain network: >10 ms
+    rec = dict(shape=f"({rows}, {m}) pairs, top {n_out}",
+               bytes=8 * rows * m + 8 * rows * n_out, ops=rows * m)
+    try:
+        merge.sort_pairs_kernel(d, i, n_out=n_out)
+    except ValueError as e:
+        if hasattr(merge, "route"):
+            raise
+        log(f"  timing merge {rec['shape']}: refused here ({e})")
+        return None
+    rec.update(
+        route=(merge.route(rows, m, n_out, 1) if hasattr(merge, "route")
+               else "network"),
+        ms=time_ms(lambda: merge.sort_pairs_kernel(d, i, n_out=n_out)),
+        **host_times(lambda: merge.sort_pairs_kernel(d, i, n_out=n_out)),
+        plain_ms=time_ms(lambda: ref.sort_pairs(d, i),
+                         **(dict(warmup=1, reps=3, replays=3) if big
+                            else {})),
+        library_ms=time_ms(lib_sort),
+        **host_times(lib_sort, "library_"),
+        library_topk_ms=time_ms(lambda: torch.topk(
+            keys, n_out, dim=-1, largest=False, sorted=True)))
+    return rec
+
+
 def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn):
     import torch
     from repro_torch.embedders.basis import cheb_kernel_constants
-    from repro_torch.kernels import (dct_mm, hash_mm, merge, ref, rerank,
+    from repro_torch.kernels import (dct_mm, hash_mm, ops, ref, rerank,
                                      simhash_pack)
 
     rec = {}
@@ -865,34 +1060,8 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn):
         rec["fused_query" if rows == 32 else f"fused_query@{rows}"] = \
             _k2_record(q, db, cands, kk)
 
-    # K3 at the fan-in of 257 segments x k=10 for a 32-row micro-batch
-    rows, runs = 32, 257
-    pm = runs * kk
-    d = torch.rand((rows, runs, kk), generator=gen).sort(dim=-1).values
-    d = d.reshape(rows, pm).cuda()
-    i = torch.randperm(4 * pm, generator=gen)[:pm].to(torch.int32)
-    i = i.repeat(rows, 1).cuda()
-    pw = 1
-    while pw < pm:
-        pw *= 2
-    stages = pw.bit_length() - 1
-    cmp_ops = rows * (pw // 2) * stages * (stages + 1) // 2
-
-    def lib_sort():
-        o = torch.sort(i, dim=-1, stable=True).indices
-        d1 = torch.gather(d, 1, o)
-        o2 = torch.sort(d1, dim=-1, stable=True).indices
-        return torch.gather(d1, 1, o2), torch.gather(i, 1, o2)
-    rec["merge"] = dict(
-        shape=f"({rows}, {pm}) pairs -> P={pw}, top {kk}",
-        ms=time_ms(lambda: merge.sort_pairs_kernel(d, i, n_out=kk)),
-        **host_times(lambda: merge.sort_pairs_kernel(d, i, n_out=kk)),
-        plain_ms=time_ms(lambda: ref.sort_pairs(d, i)),
-        library_ms=time_ms(lib_sort),
-        **host_times(lib_sort, "library_"),
-        bytes=8 * rows * pm + 8 * rows * kk,
-        ops=cmp_ops)
-
+    # K3 at the fp32 fan-in (257 segments x k = 10, a 32-row batch)
+    rec["merge"] = _k3_record(*_fan_in(gen, 32, 257, kk), kk)
     # K5 at one sealed int8 segment of a 128-row micro-batch (real
     # candidates, k = kq = 40), and at its first 32 rows: candidates are per
     # row, so they are what a 32-row batch would gather
@@ -943,20 +1112,23 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn):
         bytes=4 * (m * n + n * k + m * k // 32),
         ops=2 * m * n * k)
 
-    # K3 at the int8 fan-in, logged beside the table: 258 segments x kq =
-    # 40 for a 128-row micro-batch, P = 16,384 (128 KB of shared memory)
-    rows, runs, kq8 = 128, 258, 40
-    pm = runs * kq8
-    d8 = torch.rand((rows, runs, kq8), generator=gen).sort(dim=-1).values
-    d8 = d8.reshape(rows, pm).cuda()
-    i8 = torch.randperm(4 * pm, generator=gen)[:pm].to(torch.int32)
-    i8 = i8.repeat(rows, 1).cuda()
+    # K3 at the int8 fan-in (258 segments x kq = 40, a 128-row batch), at
+    # 1,032 segments (past the 16,384 pairs the network held), and at the
+    # survivor sort (K6's distances and gids of the captured batch, k = 10)
+    rec["merge@int8"] = _k3_record(*_fan_in(gen, 128, 258, 40), 40)
+    rec["merge@1032seg"] = _k3_record(*_fan_in(gen, 128, 1032, 40), 40)
+    rd = rerank.rerank_distances(rq, rrows, rgids)
+    rec["merge@survivors"] = _k3_record(rd, rgids, 10)
+    # ops.merge_topk's host route at the fp32 fan-in: the wrapper's masking
+    # and the launch(es), as the path calls it
+    d, i = _fan_in(gen, 32, 257, kk)
     log("  timing " + json.dumps({
-        "name": "merge (int8 fan-in)",
-        "shape": f"({rows}, {pm}) pairs -> P=16384, top {kq8}",
-        "ms": time_ms(lambda: merge.sort_pairs_kernel(d8, i8, n_out=kq8)),
-        **host_times(lambda: merge.sort_pairs_kernel(d8, i8, n_out=kq8))}))
+        "name": "merge_topk (ops, fp32 fan-in)",
+        "shape": f"({d.shape[0]}, {d.shape[1]}) pairs, k {kk}",
+        "ms": time_ms(lambda: ops.merge_topk(d, i, kk)),
+        **host_times(lambda: ops.merge_topk(d, i, kk))}))
 
+    rec = {name: t for name, t in rec.items() if t is not None}
     for name, t in rec.items():
         bms, by = bound_ms(t["bytes"], t["ops"])
         t.update(bound_ms=bms, bound_by=by,
@@ -1025,6 +1197,14 @@ def profile_batches(sv, n_batches=2, rows=32):
                           ("dct_mm", "ScaleEpilogue")):
             if epi in e["name"]:
                 gemms[name] += e["dur"] / 1e3 / n_batches
+    # K3 is select_kernel (its select route) or bitonic_kernel (the network,
+    # the only K3 of earlier checkouts), K6 rerank_kernel
+    tail = {"merge": 0.0, "rerank": 0.0}
+    for e in kern:
+        for name, tags in (("merge", ("select_kernel", "bitonic_kernel")),
+                           ("rerank", ("rerank_kernel",))):
+            if any(t in e["name"] for t in tags):
+                tail[name] += e["dur"] / 1e3 / n_batches
     res = {"rows": rows, "segments": len(sv.index.segments),
            "wall_ms": wall * 1e3,
            "kernel_ms": busy_us / 1e3 if kern else "not measured",
@@ -1034,6 +1214,7 @@ def profile_batches(sv, n_batches=2, rows=32):
            "busy_share": busy_us / 1e6 / wall if kern else "not measured",
            "scorer_ms_per_batch": scorer,
            "hash_dct_ms_per_batch": gemms,
+           "merge_rerank_ms_per_batch": tail,
            "top_kernels_ms_per_batch": {k: v / 1e3 / n_batches
                                         for k, v in top}}
     log("  profile " + json.dumps(res))
@@ -1072,9 +1253,6 @@ def check_report(report, tier):
         raise AssertionError(f"{tier}: expected >= {MAIN_ITEMS // 1024} "
                              f"sealed segments + the delta, got "
                              f"{report['n_segments']}")
-    if tier == "int8" and report["n_segments"] > INT8_MAX_SEGMENTS:
-        raise AssertionError(f"int8: {report['n_segments']} segments; K3's "
-                             f"pool holds {INT8_MAX_SEGMENTS} x kq = 40")
     if report["self_hit_rate"] < 0.95:
         raise AssertionError(f"{tier}: self-hit rate "
                              f"{report['self_hit_rate']}")
@@ -1128,6 +1306,41 @@ def simhash_path(sv, batch=SIMHASH_BATCH, bits_=SIMHASH_BITS):
     return sig
 
 
+def run_paths(card, smi):
+    """Phases 6-7: the fp32 main path, the int8 path beside it (each with
+    two profiled batches) and the simhash path; their launch counts and
+    the profiles and reports."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import ServableRegistry
+    log(f"[6/7] main path: repro_torch.launch.serve, l2-basis, "
+        f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
+    registry = ServableRegistry(device="cuda")
+    counts, report = drive(lambda: serve.run(
+        registry=registry, n_items=MAIN_ITEMS, steps=MAIN_STEPS, log=log),
+        card, smi, FP32_PATH, "main path")
+    prof = profile_batches(registry.get("l2-basis"))
+    check_report(report, "fp32")
+
+    log(f"[7/7] int8 path: repro_torch.launch.serve --precision int8, "
+        f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
+        "tenant; then the simhash path")
+    reg8 = ServableRegistry(device="cuda")
+    counts8, report8 = drive(lambda: serve.run(
+        registry=reg8, n_items=MAIN_ITEMS, steps=MAIN_STEPS,
+        precision="int8", log=log), card, smi, INT8_PATH, "int8 path")
+    prof8 = profile_batches(reg8.get("l2-basis"))
+    check_report(report8, "int8")
+    compare_tiers(registry.get("l2-basis"), reg8.get("l2-basis"), report,
+                  report8)
+    counts7, _ = drive(lambda: simhash_path(reg8.get("l2-basis")), card, smi,
+                       ("simhash_pack",), "simhash path")
+    keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
+            "self_hit_rate")
+    return counts, counts8, counts7, {
+        "fp32": {"profile": prof, **{k: report[k] for k in keep}},
+        "int8": {"profile": prof8, **{k: report8[k] for k in keep}}}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1139,6 +1352,11 @@ def main(argv=None) -> int:
                     "captures the timed inputs) and the kernel timings, "
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
+    ap.add_argument("--paths-only", action="store_true",
+                    help="phases 1, 2, 6 and 7 only: build, then the fp32, "
+                    "int8 and simhash paths with their profiled batches, "
+                    "then one JSON line of profiles and reports; to profile "
+                    "another checkout, copy this script to its root")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1146,8 +1364,6 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, dispatch
-    from repro_torch.launch import serve
-    from repro_torch.serve import ServableRegistry
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: IEEE
     torch.backends.cudnn.allow_tf32 = False
@@ -1168,6 +1384,11 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(0)
+    if args.paths_only:
+        paths = run_paths(card, smi)[3]
+        print(smi)
+        print(json.dumps({"paths": paths}))
+        return 0
     if args.timings_only:
         log("[4/7] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
@@ -1217,6 +1438,11 @@ def main(argv=None) -> int:
     check_merge(gen, 9, 100)
     check_merge(gen, 4, 4096)
     check_merge(gen, 4, 1024, sorted_run=16, runs=16)
+    # the K3 select-route and K6 width checks draw from their own
+    # generator, so the checks before them keep their inputs
+    gen15 = torch.Generator().manual_seed(15)
+    check_merge(gen15, 3, 300, n_out=200)       # the network past n_out 128
+    check_merge_select(gen15)
     i8, bf = torch.int8, torch.bfloat16
     errs["quantized_query"] = max(
         check_quantized_query(gen, 128, 1024, 1024, 40, i8, p=p)
@@ -1258,6 +1484,7 @@ def main(argv=None) -> int:
     check_rerank(gen, 128, 40, p=1.0)
     check_rerank(gen, 9, 200, n=100, p=1.5)
     check_rerank(gen, 1, 1, n=3)
+    check_rerank_shapes(gen15)
     errs["simhash_pack"] = check_simhash(gen, SIMHASH_BATCH, 64,
                                          SIMHASH_BITS)
     check_simhash(gen, 130, 64, 96)
@@ -1273,28 +1500,7 @@ def main(argv=None) -> int:
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn)
 
-    log(f"[6/7] main path: repro_torch.launch.serve, l2-basis, "
-        f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
-    registry = ServableRegistry(device="cuda")
-    counts, report = drive(lambda: serve.run(
-        registry=registry, n_items=MAIN_ITEMS, steps=MAIN_STEPS, log=log),
-        card, smi, FP32_PATH, "main path")
-    profile_batches(registry.get("l2-basis"))
-    check_report(report, "fp32")
-
-    log(f"[7/7] int8 path: repro_torch.launch.serve --precision int8, "
-        f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
-        "tenant; then the simhash path")
-    reg8 = ServableRegistry(device="cuda")
-    counts8, report8 = drive(lambda: serve.run(
-        registry=reg8, n_items=MAIN_ITEMS, steps=MAIN_STEPS,
-        precision="int8", log=log), card, smi, INT8_PATH, "int8 path")
-    profile_batches(reg8.get("l2-basis"))
-    check_report(report8, "int8")
-    compare_tiers(registry.get("l2-basis"), reg8.get("l2-basis"), report,
-                  report8)
-    counts7, _ = drive(lambda: simhash_path(reg8.get("l2-basis")), card, smi,
-                       ("simhash_pack",), "simhash path")
+    counts, counts8, counts7, _ = run_paths(card, smi)
 
     kernels = []
     for name in dispatch.KERNELS:

@@ -15,6 +15,8 @@
     return cudaGetErrorString(static_cast<cudaError_t>(code));     \
   }
 
+#include <atomic>
+
 namespace repro_torch {
 
 // Above 48 KB a block's dynamic shared memory must be opted into per
@@ -25,6 +27,21 @@ inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The same opt-in, made once per kernel and device for the most dynamic
+// shared memory that kernel ever asks for, instead of once per launch.
+template <auto kKernel>
+inline cudaError_t allow_dynamic_smem_once(size_t max_bytes) {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = allow_dynamic_smem(kKernel, max_bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace repro_torch

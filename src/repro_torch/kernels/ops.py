@@ -16,7 +16,7 @@ from . import dispatch, ref
 from .dct_mm import dct_mm
 from .fused_query import fused_query_topk as _fused_query_kernel
 from .hash_mm import hash_mm
-from .merge import sort_pairs_kernel
+from .merge import merge_topk_kernel
 from .quantized_query import quantized_query_topk as _quantized_query_kernel
 from .rerank import rerank_distances
 from .simhash_pack import simhash_pack
@@ -105,13 +105,15 @@ def merge_topk(dists, ids, k: int):
     dists/ids: (nq, M) f32/int32, the concatenation of every segment's k
     results (-1 id = empty slot).  Returns (dists (nq, k), ids (nq, k)),
     ascending under the total (distance, id) order, (+inf, -1) padded --
-    the order that makes a segmented query reproduce a single index's."""
+    the order that makes a segmented query reproduce a single index's.  On
+    the card that is one launch of K3's select route (the masking of
+    empty slots inside it) when k <= 128, after the padding when M < k."""
     dists, ids = _pad_to_k(dists, ids, k)
+    if dispatch.use_kernel(dists):
+        return merge_topk_kernel(dists.contiguous(),
+                                 ids.to(torch.int32).contiguous(), k)
     d = torch.where(ids < 0, torch.inf, dists).contiguous()
     ids = ids.to(torch.int32).contiguous()
-    if dispatch.use_kernel(d):
-        sd, si = sort_pairs_kernel(d, ids, n_out=k)
-    else:
-        sd, si = ref.sort_pairs(d, ids)
-        sd, si = sd[..., :k], si[..., :k]
+    sd, si = ref.sort_pairs(d, ids)
+    sd, si = sd[..., :k], si[..., :k]
     return sd, torch.where(torch.isinf(sd), -1, si)

@@ -140,6 +140,149 @@ def test_merge_kernel_bit_identical(gen, width):
     assert torch.equal(si.cpu(), pi)
 
 
+def _merge_pairs(gen, rows, m, kind="ties"):
+    """(d, i) on the CPU: distances in steps of 1/50 (many ties) with every
+    13th +inf and ids in [-1, 4M), or one of the duplicate-heavy kinds."""
+    d = torch.round(torch.rand((rows, m), generator=gen) * 50) / 50
+    d[:, ::13] = torch.inf
+    i = torch.randint(-1, 4 * m, (rows, m), generator=gen, dtype=torch.int32)
+    if kind == "empty":                 # every slot (+inf, -1)
+        d[:] = torch.inf
+        i[:] = -1
+    elif kind == "equal":               # one distance, distinct ids
+        d[:] = 0.5
+        i = torch.argsort(torch.rand((rows, m), generator=gen), dim=1)
+        i = i.to(torch.int32)
+    elif kind == "repeated":            # a few pairs, each many times
+        pick = torch.randint(0, 3, (rows, m), generator=gen)
+        d = torch.gather(d[:, :3], 1, pick)
+        i = torch.gather(i[:, :3], 1, pick)
+    elif kind == "padded":              # a third of the slots empty
+        d[:, 1::3] = torch.inf
+        i[:, 1::3] = -1
+    elif kind == "negative":            # signed distances, no -0.0
+        d = d - 0.5
+        d[d == 0] = 0.25
+        d[:, 5::29] = -torch.inf
+    return d, i
+
+
+def _assert_pairs(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+def _merge_plain(d, i, k):
+    """ops.merge_topk's CPU route, run on the tensors' own device."""
+    dm = torch.where(i < 0, torch.inf, d)
+    sd, si = ref.sort_pairs(dm, i)
+    sd, si = sd[:, :k], si[:, :k]
+    return sd, torch.where(torch.isinf(sd), -1, si)
+
+
+MERGE_CASES = [(rows, m, k) for rows in (1, 32, 128, 300)
+               for m in (1, 5, 40, 2570, 10320, 41280)
+               for k in (1, 10, 40, 128) if k <= m]
+
+
+@pytest.mark.parametrize("rows,m,n_out", MERGE_CASES)
+def test_merge_select_route_bit_identical(gen, rows, m, n_out):
+    """K3's select route against the plain network's first n_out columns,
+    and ops.merge_topk against its CPU route, bit for bit."""
+    from repro_torch.kernels import merge
+    assert merge.route(rows, m, n_out, 1) == "select"
+    d, i = _merge_pairs(gen, rows, m)
+    dc, ic = d.cuda(), i.cuda()
+    sd, si = ref.sort_pairs(dc, ic)
+    _assert_pairs(merge.sort_pairs_kernel(dc, ic, n_out=n_out),
+                  (sd[:, :n_out], si[:, :n_out]))
+    got = ops.merge_topk(dc, ic, n_out)
+    want = (ops.merge_topk(d, i, n_out) if rows * m <= 2 ** 20
+            else _merge_plain(dc, ic, n_out))
+    _assert_pairs((got[0].cpu(), got[1].cpu()),
+                  (want[0].cpu(), want[1].cpu()))
+
+
+@pytest.mark.parametrize("kind", ["empty", "equal", "repeated", "padded",
+                                  "negative"])
+@pytest.mark.parametrize("rows,m,n_out", [(32, 2570, 10), (128, 10320, 40),
+                                          (128, 40, 10), (5, 300, 128),
+                                          (128, 41280, 40), (3, 41280, 128)])
+def test_merge_select_route_duplicate_heavy(gen, kind, rows, m, n_out):
+    from repro_torch.kernels import merge
+    d, i = _merge_pairs(gen, rows, m, kind)
+    dc, ic = d.cuda(), i.cuda()
+    sd, si = ref.sort_pairs(dc, ic)
+    _assert_pairs(merge.sort_pairs_kernel(dc, ic, n_out=n_out),
+                  (sd[:, :n_out], si[:, :n_out]))
+    if kind != "negative":
+        _assert_pairs(ops.merge_topk(dc, ic, n_out),
+                      _merge_plain(dc, ic, n_out))
+
+
+@pytest.mark.parametrize("d_off,i_off", [(1, 1), (3, 3), (1, 2), (0, 3)])
+@pytest.mark.parametrize("m", [37, 2570, 10320])
+def test_merge_select_route_unaligned_views(gen, m, d_off, i_off):
+    """Views at the same offset from a 16-byte boundary take the 16-byte
+    loads from the chunks around each row; different offsets the scalar
+    loads.  Both bit-identical."""
+    from repro_torch.kernels import merge
+    d, i = _merge_pairs(gen, 7, m)
+    dc, ic = _on_card(d, d_off), _on_card(i, i_off)
+    vec = dc.data_ptr() % 16 == ic.data_ptr() % 16
+    assert merge.plan(7, m, vec).vec == (d_off % 4 == i_off % 4)
+    sd, si = ref.sort_pairs(dc, ic)
+    for n_out in (1, 10, 37):
+        _assert_pairs(merge.sort_pairs_kernel(dc, ic, n_out=n_out),
+                      (sd[:, :n_out], si[:, :n_out]))
+        _assert_pairs(ops.merge_topk(dc, ic, n_out),
+                      _merge_plain(dc, ic, n_out))
+
+
+def test_merge_topk_answers_a_100000_pair_row(gen):
+    """One row of 100,000 pairs (the network route refused any pool over
+    16,384), streamed in tiles by every rank of the cluster."""
+    from repro_torch.kernels import merge
+    assert merge.plan(1, 100_000).share > merge.MAX_TILE
+    d, i = _merge_pairs(gen, 1, 100_000, "padded")
+    dc, ic = d.cuda(), i.cuda()
+    for k in (10, 40, 128):
+        _assert_pairs(ops.merge_topk(dc, ic, k), _merge_plain(dc, ic, k))
+
+
+def test_merge_topk_is_one_launch(gen):
+    from repro_torch.kernels import merge
+    for rows, m, k in ((32, 2570, 10), (128, 10320, 40), (128, 40, 10),
+                       (4, 6, 10)):
+        d, i = _merge_pairs(gen, rows, m)
+        before = dispatch.launches["merge"]
+        ops.merge_topk(d.cuda(), i.cuda(), k)
+        assert dispatch.launches["merge"] == before + 1
+    # the network route keeps its cap, and says which route refused
+    d, i = _merge_pairs(gen, 2, 20_000)
+    with pytest.raises(ValueError, match="network route"):
+        merge.sort_pairs_kernel(d.cuda(), i.cuda())
+
+
+@pytest.mark.parametrize("rows,m,n_out,run", [(32, 2570, None, 1),
+                                              (4, 4096, None, 1),
+                                              (3, 300, 200, 1),
+                                              (4, 1024, 10, 16)])
+def test_merge_network_route_bit_identical(gen, rows, m, n_out, run):
+    from repro_torch.kernels import merge
+    d, i = _merge_pairs(gen, rows, m)
+    if run > 1:
+        d = d.reshape(rows, m // run, run).sort(dim=-1).values
+        d = d.reshape(rows, m)
+    assert merge.route(rows, m, n_out or m, run) == "network"
+    dc, ic = d.cuda(), i.cuda()
+    sd, si = ref.sort_pairs(dc, ic, sorted_run=run)
+    k = n_out or m
+    _assert_pairs(merge.sort_pairs_kernel(dc, ic, sorted_run=run,
+                                          n_out=n_out),
+                  (sd[:, :k], si[:, :k]))
+
+
 def _quantized_inputs(gen, nq, n, m, c, dtype):
     from repro_torch.kernels import quantize
     db = torch.randn((m, n), generator=gen)
@@ -307,6 +450,28 @@ def test_rerank_kernel(gen, p):
     before = dispatch.launches["rerank"]
     d = ops.candidate_distances(q, emb, ids, p=p)
     assert dispatch.launches["rerank"] == before + 1
+    want = ref.rerank_ref(q, emb, ids, p)
+    assert torch.equal(torch.isinf(d), ids < 0)
+    torch.testing.assert_close(d, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [3, 48, 64, 100, 200])
+@pytest.mark.parametrize("p", [1.0, 2.0, 1.5])
+def test_rerank_kernel_shapes(gen, p, n, offset):
+    """K6 at widths on both instantiations (16-byte loads at N % 4 == 0 on
+    aligned views, scalar otherwise), with an all-invalid row: rtol 1e-5
+    atol 1e-6 of the plain version, +inf exactly where the id is < 0."""
+    from repro_torch.kernels import rerank
+    b, c = 9, 40
+    q = _on_card(torch.randn((b, n), generator=gen), offset)
+    emb = _on_card(torch.randn((b, c, n), generator=gen), offset)
+    ids = torch.randint(-1, 500, (b, c), generator=gen, dtype=torch.int32)
+    ids[2] = -1
+    ids = ids.cuda()
+    vec = (q.data_ptr() | emb.data_ptr()) % 16 == 0
+    assert rerank.plan(b, n, vec).vec == (offset == 0 and n % 4 == 0)
+    d = ops.candidate_distances(q, emb, ids, p=p)
     want = ref.rerank_ref(q, emb, ids, p)
     assert torch.equal(torch.isinf(d), ids < 0)
     torch.testing.assert_close(d, want, rtol=1e-5, atol=1e-6)

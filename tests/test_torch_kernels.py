@@ -23,7 +23,7 @@ from repro.kernels import merge as jmerge  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import (dct_mm, dispatch, fused_query,  # noqa: E402
-                                 hash_mm, merge, ops, ref)
+                                 hash_mm, merge, ops, ref, rerank)
 
 BOUNDARY = 1e-4   # |proj - round(proj)| below this may floor either way
 
@@ -181,6 +181,22 @@ def test_sort_pairs_bit_identical_to_jax_network(width):
     _assert_bits(is_.numpy(), np.take_along_axis(i1, o2, -1))
 
 
+def test_sort_pairs_above_the_old_pool_cap_matches_jax():
+    """A row of 20,000 pairs (padded to 32,768), past the 16,384 that the
+    card's network route holds in shared memory: the reference answers, so
+    the port's fan-in must too (the select route, on the card)."""
+    d, i = _pairs(2, 20_000, 16385)
+    ds, is_ = ref.sort_pairs(_t(d), _t(i))
+    dj, ij = jmerge.sort_pairs(jnp.asarray(d), jnp.asarray(i))
+    _assert_bits(ds.numpy(), dj)
+    _assert_bits(is_.numpy(), ij)
+    sd, si = ops.merge_topk(_t(d), _t(i), 40)
+    dj, ij = jops.merge_topk(jnp.asarray(d), jnp.asarray(i), 40,
+                             mode="bitonic")
+    _assert_bits(sd.numpy(), dj)
+    _assert_bits(si.numpy(), ij)
+
+
 def test_sort_pairs_sorted_run_matches_jax():
     d, i = _pairs(3, 64, 5)
     order = np.lexsort((i.reshape(3, 8, 8), d.reshape(3, 8, 8)), axis=-1)
@@ -230,6 +246,13 @@ def test_cpu_tensors_take_the_plain_versions():
         torch.zeros(2, 3, dtype=torch.int32), 2),
     lambda: merge.sort_pairs_kernel(torch.zeros(2, 4),
                                     torch.zeros(2, 4, dtype=torch.int32)),
+    lambda: merge.sort_pairs_kernel(torch.zeros(2, 400),
+                                    torch.zeros(2, 400, dtype=torch.int32),
+                                    n_out=10),
+    lambda: merge.merge_topk_kernel(torch.zeros(2, 4),
+                                    torch.zeros(2, 4, dtype=torch.int32), 2),
+    lambda: rerank.rerank_distances(torch.zeros(2, 4), torch.zeros(2, 3, 4),
+                                    torch.zeros(2, 3, dtype=torch.int32)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -1,6 +1,8 @@
 """The launch plans of the port's kernels: the one K2 and K5 share
-(``kernels/fused_query._plan``) and the small GEMM's of K1 and K4
-(``kernels/small_gemm.plan``, for ``csrc/small_gemm.cuh``).
+(``kernels/fused_query._plan``), the small GEMM's of K1 and K4
+(``kernels/small_gemm.plan``, for ``csrc/small_gemm.cuh``), K3's select
+route (``kernels/merge.plan`` and ``route``) and K6's
+(``kernels/rerank.plan``).
 
 A row of C candidate slots is split across a cluster of G blocks of S
 slots each, and each candidate row is read by L lanes.  On the CPU the
@@ -17,7 +19,7 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch.kernels import fused_query  # noqa: E402
-from repro_torch.kernels import small_gemm  # noqa: E402
+from repro_torch.kernels import merge, rerank, small_gemm  # noqa: E402
 from repro_torch.kernels.fused_query import (KP, SMEM_LIMIT,  # noqa: E402
                                              SMEM_PER_BLOCK, _plan)
 
@@ -220,3 +222,121 @@ def test_gemm_plan_vector_path_only_when_aligned(k, n, aligned):
     lengths (k for X, n for A and the column vector) are multiples of 4."""
     assert small_gemm.plan(32, k, n, aligned).vec == (
         aligned and k % 4 == 0 and n % 4 == 0)
+
+
+# -- K3 merge: the select route's plan (csrc/merge.cu) ------------------------
+
+MERGE_ROWS = [1, 5, 32, 33, 128, 129, 264, 300, 4096]
+MERGE_MS = [1, 2, 3, 5, 40, 255, 256, 511, 513, 2570, 8192, 10320, 16385,
+            41280, 100_000, 1_000_000]
+# a block's 227 KB less its static scratch (merge.cu's Scratch, ~2.3 KB)
+MERGE_SMEM_MAX = 227 * 1024 - 4096
+
+
+@pytest.mark.parametrize("m", MERGE_MS)
+@pytest.mark.parametrize("rows", MERGE_ROWS)
+def test_merge_plan_owns_every_pair_once(rows, m):
+    """Rank r reads pairs [r * share, (r + 1) * share) of a row: every pair
+    has exactly one owner, every rank owns at least one pair, and the share
+    is a multiple of 4 (the 16-byte chunks)."""
+    for aligned in (True, False):
+        plan = merge.plan(rows, m, aligned)
+        g, share = plan.cluster, plan.share
+        assert share % 4 == 0 and share * g >= m
+        owners = Counter(plan.owner(j) for j in range(0, m, max(1, m // 997)))
+        owners.update(plan.owner(j) for j in (0, m - 1))
+        assert set(owners) <= set(range(g))
+        for r in range(g):
+            lo, hi = r * share, min(m, (r + 1) * share)
+            assert lo < hi, (rows, m, plan)
+            assert plan.owner(lo) == r and plan.owner(hi - 1) == r
+
+
+@pytest.mark.parametrize("rows", MERGE_ROWS)
+def test_merge_plan_grid_is_one_wave(rows):
+    """rows x G blocks stay within one wave of 264 unless the rows alone
+    exceed it, G is a power of two <= 8, and doubling G again would leave
+    the wave or a rank with fewer than 256 pairs."""
+    for m in MERGE_MS:
+        plan = merge.plan(rows, m)
+        g = plan.cluster
+        assert 1 <= g <= merge.MAX_CLUSTER <= 8 and g & (g - 1) == 0
+        assert rows * g <= max(rows, merge.TARGET_BLOCKS)
+        if g < merge.MAX_CLUSTER:
+            assert (rows * 2 * g > merge.TARGET_BLOCKS
+                    or -(-m // (2 * g)) < merge.MIN_SHARE)
+
+
+@pytest.mark.parametrize("m", MERGE_MS + list(range(1, 10))
+                         + [10 ** 6 - 1, 999_983])
+def test_merge_plan_shared_memory_within_the_block_limit(m):
+    """Every M up to 10^6: the tile holds at most 8,192 keys, the pool
+    (KP + tile keys), three lists of KP and rank 0's G lists fit beside the
+    static scratch, and a share of at most 8,192 keys is one tile (the
+    16-byte chunks may start 3 pairs early)."""
+    for rows in MERGE_ROWS:
+        for aligned in (True, False):
+            plan = merge.plan(rows, m, aligned)
+            assert plan.tile % 4 == 0 and 4 <= plan.tile <= merge.MAX_TILE
+            assert plan.smem == merge.smem_bytes(plan.tile, plan.cluster)
+            assert plan.smem <= MERGE_SMEM_MAX
+            assert merge.smem_bytes(merge.MAX_TILE,
+                                    merge.MAX_CLUSTER) <= MERGE_SMEM_MAX
+            chunk = 4 if plan.vec else 1
+            chunks = -(-(plan.share + chunk - 1) // chunk)
+            if chunks * chunk <= merge.MAX_TILE:
+                assert chunks * chunk <= plan.tile
+
+
+def test_merge_plan_path_shapes():
+    """G = 4 at the fp32 fan-in (32, 2570), 2 at the int8 fan-in (128,
+    10,320) and at 1,032 int8 segments (128, 41,280), which streams three
+    tiles a rank; the survivor sort (128, 40) takes one block a row."""
+    assert merge.plan(32, 2570).cluster == 4
+    assert merge.plan(128, 10320).cluster == 2
+    p = merge.plan(128, 41280)
+    assert p.cluster == 2 and -(-p.share // p.tile) == 3
+    assert merge.plan(128, 40)[:3] == (1, 40, 44)
+    assert merge.plan(1, 100_000).share > merge.MAX_TILE
+
+
+@pytest.mark.parametrize("n_out,run,want", [
+    (1, 1, "select"), (10, 1, "select"), (128, 1, "select"),
+    (129, 1, "network"), (4096, 1, "network"), (10, 2, "network"),
+    (40, 16, "network"), (129, 16, "network")])
+def test_merge_route(n_out, run, want):
+    """n_out > 128 or sorted_run > 1 takes the network; the choice reads
+    no tensor and no environment."""
+    for rows in (1, 32, 300):
+        for m in (n_out, 2570, 41280):
+            assert merge.route(rows, m, n_out, run) == want
+
+
+# -- K6 rerank's plan (csrc/rerank.cu) ----------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 48, 50, 64, 100, 200, 4096])
+@pytest.mark.parametrize("b", [1, 9, 128, 264, 265, 1000, 100_000])
+def test_rerank_plan(b, n):
+    """One query row a block until the grid passes one wave; the rows fit
+    48 KB; L lanes (a power of two <= 32) cover a row's 16-byte chunks once
+    with no lane idle, or its floats on the scalar path."""
+    for aligned in (True, False):
+        plan = rerank.plan(b, n, aligned)
+        ldq = -(-n // 4) * 4
+        assert plan.smem == plan.rows * ldq * 4 <= rerank.SMEM_LIMIT
+        assert plan.rows == 1 or -(-b // (plan.rows // 2)) > 264
+        assert plan.vec == (aligned and n % 4 == 0)
+        assert 1 <= plan.lanes <= 32 and plan.lanes & (plan.lanes - 1) == 0
+        units = n // 4 if plan.vec else n
+        seen = sorted(j for lane in range(plan.lanes)
+                      for j in range(lane, units, plan.lanes))
+        assert seen == list(range(units))
+        # every lane has a first unit, and two at once when the row has them
+        assert plan.lanes <= max(1, -(-units // rerank.PRE))
+
+
+def test_rerank_plan_path_shape():
+    """(128, 40, 64): 128 blocks of one row, 8 lanes a pair (four pairs a
+    warp), two 16-byte loads a lane at once."""
+    assert rerank.plan(128, 64) == rerank.Plan(1, 8, True, 256)

@@ -205,3 +205,25 @@ def test_servable_refuses_to_run_without_a_device(monkeypatch):
         Servable(ServableSpec(name="x"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(["--n-items", "8"])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_merge_inputs_hold_no_negative_zero(monkeypatch, precision):
+    """K3's select route takes no -0.0 and no NaN (the network calls -0.0
+    equal to +0.0).  Every fan-in and survivor sort of the demo, at both
+    tiers, sees distances that are +inf or sums of non-negative terms."""
+    from repro_torch.kernels import ops as tops
+    seen = []
+    real = tops.merge_topk
+
+    def spy(dists, ids, k):
+        seen.append(dists.clone())
+        return real(dists, ids, k)
+    monkeypatch.setattr(tops, "merge_topk", spy)
+    tserve.run(device="cpu", n_items=2048, steps=2, recall_probe_size=8,
+               self_hit_probes=8, precision=precision, log=lambda *a: None)
+    assert len(seen) >= 2
+    for d in seen:
+        assert not torch.isnan(d).any()
+        assert not (torch.signbit(d) & (d == 0)).any()
+        assert (d >= 0).all()
