@@ -13,8 +13,10 @@ each of which raises on failure (the script then exits non-zero):
    card, at the main path's shapes and at edge shapes (K1 and K4 also on
    unaligned views, and bit for bit across batch sizes; K3's two routes
    bit for bit, the select route up to 41,280-pair rows and one row of
-   100,000, on duplicate-heavy rows and through ``ops.merge_topk``; K6 at
-   five widths and three metrics, aligned and not);
+   100,000, on duplicate-heavy rows, on mixed +0.0 / -0.0 rows and
+   through ``ops.merge_topk``; K6 at five widths and three metrics,
+   aligned and not; K7 bit for bit against its fmaf chain at five shapes,
+   aligned and not, and across batch sizes; the tie check over 8 seeds);
 4. parity: the l2-basis pipeline at 8,192 items on the CPU (plain
    versions) and on the card (kernels) with one injected family, at fp32
    and at the int8 tier (whose gids must be equal);
@@ -31,7 +33,7 @@ each of which raises on failure (the script then exits non-zero):
    (256 sealed segments), then 20 demo steps; launch counts read around it;
 7. int8 path: the same run with ``precision="int8"`` (phase 6's tenant
    still alive), then both tenants answer the same 64 probes; and the
-   simhash path: ``ops.simhash_signature`` over every live item.  Launch
+   simhash path: ``SimHash.__call__`` over every live item.  Launch
    counts are read around each.
 
 The last lines are the card's name and power limit, one JSON object with
@@ -412,11 +414,17 @@ def check_quantized_query(gen, nq, m, c, k, dtype, p=2.0, valid_items=None,
     return err
 
 
-def check_query_ties(gen, nq, dtype, n=64, c=1024):
+def check_query_ties(gen, nq, dtype, n=64, c=1024, quiet=False):
     """K2 (fp32) or K5 (int8/bf16): ids 0..G-1 name one vector, the query
     itself, and sit in slots owned by different cluster ranks in an order
-    unlike their ids.  The lower slot must win each tie, exactly, and the
-    whole answer must equal the plain version's."""
+    unlike their ids.  The lower slot must win each tie, exactly, the ids
+    must equal the plain version's, and so must the tied distances: bit
+    for bit for fp32 and int8 (exact sums: 0 and integers), within K5's
+    bf16 contract (rtol 1e-5) for bf16, whose 64 products the plain
+    version and the kernel sum in different orders
+    (tools/probe_sum_order.py, which also times a copy of K5 that follows
+    the plain order: slower).  Returns whether the tied distances were
+    bit-equal."""
     import torch
     from repro_torch.kernels import (fused_query, quantize, quantized_query,
                                      ref)
@@ -447,13 +455,40 @@ def check_query_ties(gen, nq, dtype, n=64, c=1024):
         dp, ip = ref.quantized_topk_ref(q, codes, scale, ids, k)
     torch.cuda.synchronize()
     nt = len(want)
-    if not (torch.equal(bits(d[:, :nt]), bits(dp[:, :nt]))
-            and torch.equal(i, ip)
-            and i[:, :nt].tolist() == [want] * nq):
+    bit_equal = torch.equal(bits(d[:, :nt]), bits(dp[:, :nt]))
+    if dtype == torch.bfloat16:
+        close = torch.allclose(d[:, :nt], dp[:, :nt], rtol=1e-5, atol=0)
+    else:
+        close = bit_equal
+    if not (close and bool((d[:, :nt] == d[:, :1]).all())
+            and torch.equal(i, ip) and i[:, :nt].tolist() == [want] * nq):
         raise AssertionError(f"ties nq={nq} {dtype} G={plan.cluster}: "
                              f"got {i[0, :nt].tolist()}, want {want}")
-    log(f"  ties across {plan.cluster} cluster ranks, nq={nq} {dtype}: "
-        f"lower slot first, ids {want}")
+    if not quiet:
+        log(f"  ties across {plan.cluster} cluster ranks, nq={nq} {dtype}: "
+            f"lower slot first, ids {want}")
+    return bit_equal
+
+
+def check_query_ties_seeds(seeds=8):
+    """check_query_ties at both row counts and all three dtypes, its
+    inputs drawn from ``seeds`` generator seeds of their own; raises on
+    any failure, and logs how many passed and how often the bf16 tied
+    distances were also bit-equal to the plain version's."""
+    import torch
+    n_pass, n_bf16, bf16_bit_equal = 0, 0, 0
+    for seed in range(seeds):
+        g = torch.Generator().manual_seed(1000 + seed)
+        for nq in (32, 128):
+            for dt in (torch.float32, torch.int8, torch.bfloat16):
+                same = check_query_ties(g, nq, dt, quiet=True)
+                n_pass += 1
+                if dt == torch.bfloat16:
+                    n_bf16 += 1
+                    bf16_bit_equal += same
+    log(f"  ties over {seeds} seeds x nq in (32, 128) x (fp32, int8, bf16): "
+        f"{n_pass} of {n_pass} pass; bf16 tied distances bit-equal to the "
+        f"plain version's in {bf16_bit_equal} of {n_bf16}")
 
 
 def check_rerank(gen, b, c, n=64, p=2.0, offset=0, invalid_rows=0,
@@ -500,16 +535,24 @@ def check_rerank_shapes(gen):
         f"cases ok (max err {worst:.3g})")
 
 
-def check_simhash(gen, m, n, k):
-    """K7 against its plain version: every bit equal where |x @ A| >= 1e-5
-    (a sum within 1e-5 of 0 may take either sign in another order)."""
+def check_simhash(gen, m, n, k, offset=0, quiet=False):
+    """K7 against its plain version, every bit equal where |x @ A| >= 1e-5
+    (a sum within 1e-5 of 0 may take either sign in another order), and
+    bit for bit against its own arithmetic (``ref.simhash_pack_chain_ref``:
+    one fmaf chain per output over the depth in order, as the SIMT kernel
+    it replaced summed).  Row 0 is all +0.0 and row 1 all -0.0: every word
+    -1.  ``offset`` floats past alignment takes the scalar path."""
     import torch
     from repro_torch.kernels import ref, simhash_pack
-    x = torch.randn((m, n), generator=gen).cuda()
-    a = torch.randn((n, k), generator=gen).cuda()
-    x[0] = 0.0                                    # all projections 0: -1
+    x = torch.randn((m, n), generator=gen)
+    x[0] = 0.0
+    if m > 1:
+        x[1] = -0.0
+    x = on_card(x, offset)
+    a = on_card(torch.randn((n, k), generator=gen), offset)
     sig = simhash_pack.simhash_pack(x, a)
     want = ref.simhash_pack_ref(x, a)
+    chain = ref.simhash_pack_chain_ref(x, a)
     proj = (x.double() @ a.double()).abs()
     torch.cuda.synchronize()
     shifts = torch.arange(32, device=x.device)
@@ -517,13 +560,54 @@ def check_simhash(gen, m, n, k):
     want_b = ((want[..., None] >> shifts) & 1).reshape(m, k)
     near = proj < 1e-5
     bad = int(((got_b != want_b) & ~near).sum())
-    if bad or not bool((sig[0] == -1).all()):
-        raise AssertionError(f"simhash {m}x{n}x{k}: {bad} bits differ away "
-                             "from |proj| < 1e-5")
+    tag = f"simhash_pack {m}x{n}x{k} offset {offset}"
+    if bad:
+        raise AssertionError(f"{tag}: {bad} bits differ away from |proj| < "
+                             "1e-5")
+    if not bool((sig[:min(m, 2)] == -1).all()):
+        raise AssertionError(f"{tag}: a row of +0.0 or -0.0 is not all -1")
+    if not torch.equal(sig, chain):
+        raise AssertionError(f"{tag}: not bit-identical to its fmaf chain")
     flips = int((got_b != want_b).sum())
-    log(f"  simhash_pack {m}x{n}x{k}: ok ({int(near.sum())} values within "
-        f"1e-5 of 0, {flips} bits flipped)")
+    if not quiet:
+        log(f"  {tag}: ok, bit-identical to its fmaf chain ({int(near.sum())}"
+            f" values within 1e-5 of 0, {flips} bits flipped against the "
+            "plain version)")
     return float(flips > 0)        # max |bit - plain bit| over the bits
+
+
+SIMHASH_SHAPES = ((SIMHASH_BATCH, 64, SIMHASH_BITS), (37, 50, 96), (1, 64, 32),
+                  (513, 100, 160), (4096, 200, 2048))
+
+
+def check_simhash_shapes(gen):
+    """K7 at the benchmark's shape and the edges (one row, one word, a
+    depth past 64, 4,096 rows), aligned and 1 float past alignment; the
+    benchmark shape's error is returned."""
+    err = 0.0
+    for m, n, k in SIMHASH_SHAPES:
+        for offset in (0, 1):
+            e = check_simhash(gen, m, n, k, offset=offset)
+            if (m, n, k, offset) == (SIMHASH_BATCH, 64, SIMHASH_BITS, 0):
+                err = e
+    return err
+
+
+def check_simhash_batch_invariance(gen):
+    """K7: the same rows in calls of 1, 37 and 512 rows give equal words."""
+    import torch
+    from repro_torch.kernels import simhash_pack
+    x = torch.randn((SIMHASH_BATCH, 64), generator=gen).cuda()
+    a = torch.randn((64, SIMHASH_BITS), generator=gen).cuda()
+    full = simhash_pack.simhash_pack(x, a)
+    for lo, hi in ((0, 1), (5, 42), (511, 512)):
+        part = simhash_pack.simhash_pack(x[lo:hi], a)
+        if not torch.equal(part, full[lo:hi]):
+            raise AssertionError(f"simhash_pack: rows {lo}:{hi} of a 512-row "
+                                 "call differ from the slice's own call")
+    torch.cuda.synchronize()
+    log("  simhash_pack: rows 0:1, 5:42 and 511:512 of a 512-row call "
+        "bit-identical to the slices' own calls")
 
 
 def check_merge(gen, rows, m, sorted_run=1, n_out=None, runs=None):
@@ -567,7 +651,8 @@ def merge_pairs(gen, rows, m, kind="ties"):
     ties), every 13th +inf, ids in [-1, 4M); or a duplicate-heavy kind:
     ``empty`` (every slot (+inf, -1)), ``equal`` (one distance, distinct
     ids), ``repeated`` (three pairs, each many times), ``padded`` (a third
-    of the slots (+inf, -1)), ``negative`` (signed, -inf, no -0.0)."""
+    of the slots (+inf, -1)), ``negative`` (signed, -inf, no -0.0),
+    ``signed_zero`` (half the distances +0.0 or -0.0)."""
     import torch
     d = torch.round(torch.rand((rows, m), generator=gen) * 50) / 50
     d[:, ::13] = torch.inf
@@ -589,7 +674,18 @@ def merge_pairs(gen, rows, m, kind="ties"):
         d = d - 0.5
         d[d == 0] = 0.25
         d[:, 5::29] = -torch.inf
+    elif kind == "signed_zero":
+        pick = torch.randint(0, 4, (rows, m), generator=gen)
+        d = torch.where(pick == 0, -0.0, torch.where(pick == 1, 0.0, d))
     return d, i
+
+
+def positive_zero(d):
+    """``d`` with -0.0 written as +0.0: what K3's select route returns for
+    a -0.0 distance (it orders the two as equal, ties by id, as the network
+    does, but cannot keep the sign)."""
+    import torch
+    return torch.where(d == 0, torch.zeros_like(d), d)
 
 
 def merge_topk_plain(d, i, k):
@@ -605,7 +701,8 @@ def merge_topk_plain(d, i, k):
 def check_merge_select(gen):
     """K3's select route bit for bit against the plain network's first
     n_out columns, and ops.merge_topk against its CPU route (on the CPU up
-    to 2^20 pairs, else the same code on the card), one launch each."""
+    to 2^20 pairs, else the same code on the card), one launch each; on
+    rows holding -0.0, a -0.0 of the network's is +0.0 of the kernel's."""
     import torch
     from repro_torch.kernels import dispatch, merge, ops, ref
 
@@ -622,6 +719,11 @@ def check_merge_select(gen):
             want = ops.merge_topk(d, i, max(ks))
         elif topk:
             want = merge_topk_plain(dc, ic, max(ks))
+        if bool(torch.signbit(d[d == 0]).any()):
+            # equal as values where the network keeps a -0.0
+            sd = positive_zero(sd)
+            if topk:
+                want = (positive_zero(want[0]), want[1])
         for k in ks:
             if not same(merge.sort_pairs_kernel(dc, ic, n_out=k),
                         (sd[:, :k], si[:, :k])):
@@ -662,6 +764,23 @@ def check_merge_select(gen):
         f"equal distances, repeated pairs, a third empty), signed distances, "
         f"views 1-3 floats past alignment and a 100,000-pair row: {n} inputs "
         "bit-identical")
+    n = 0
+    for rows, m, k in ((32, 2570, 10), (128, 10320, 40), (128, 40, 10),
+                       (5, 300, 128), (128, 41280, 40), (3, 41280, 128)):
+        n += one(*merge_pairs(gen, rows, m, "signed_zero"), [k],
+                 (rows, 0, 0))
+    # a row where -0.0 sorted below +0.0 would change the ids: the network
+    # calls them equal and takes ids 1, 3, 4, 5
+    d = torch.tensor([[0.0, -0.0, 0.0, -0.0, 1.0, 2.0, -0.0, 0.0]])
+    i = torch.tensor([[7, 3, 1, 5, 0, 2, 9, 4]], dtype=torch.int32)
+    n += one(d, i, [4], (1, 0, 0))
+    got = ops.merge_topk(d.cuda(), i.cuda(), 4)
+    if got[1].tolist() != [[1, 3, 4, 5]]:
+        raise AssertionError(f"merge_topk on +-0.0: ids {got[1].tolist()}")
+    log(f"  merge select route on rows of mixed +0.0 and -0.0: {n} inputs, "
+        "ids equal to the plain network's and distances bit-identical but "
+        "for -0.0, written +0.0; the mixed row [0, -0, 0, -0, 1, 2, -0, 0] "
+        "gives ids [1, 3, 4, 5]")
 
 
 # -- phase 4: CPU vs card parity ----------------------------------------------
@@ -1286,18 +1405,26 @@ def compare_tiers(sv32, sv8, report, report8, n_probe=64, k=10):
 
 
 def simhash_path(sv, batch=SIMHASH_BATCH, bits_=SIMHASH_BITS):
-    """ops.simhash_signature (the entry point bench_hash_throughput calls)
-    over every live item of the tenant, in 512-row batches, 1024 bits."""
+    """``SimHash.__call__`` (the family bench_hash_throughput hashes with),
+    drawn on the card from seed 7, over every live item of the tenant in
+    512-row batches, 1024 bits: one K7 launch a batch.  The first batch's
+    words must equal the kernel's fmaf chain and, away from |proj| < 1e-5,
+    the plain version's."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.core.hashes import SimHash
+    from repro_torch.kernels import ref
     emb, _ = sv.index.live_items()
-    a = torch.randn((emb.shape[1], bits_),
-                    generator=torch.Generator().manual_seed(7)).cuda()
-    sigs = [ops.simhash_signature(emb[s:s + batch].contiguous(), a)
-            for s in range(0, emb.shape[0], batch)]
+    fam = SimHash.create(torch.Generator("cuda").manual_seed(7),
+                         emb.shape[1], bits_)
+    sigs = [fam(emb[s:s + batch]) for s in range(0, emb.shape[0], batch)]
     sig = torch.cat(sigs)
-    want = ref.simhash_pack_ref(emb[:batch], a)
-    near = ((emb[:batch].double() @ a.double()).abs() < 1e-5).any()
+    first = emb[:batch].contiguous()
+    want = ref.simhash_pack_ref(first, fam.alpha)
+    near = ((first.double() @ fam.alpha.double()).abs() < 1e-5).any()
+    if not torch.equal(sig[:batch], ref.simhash_pack_chain_ref(
+            first, fam.alpha)):
+        raise AssertionError("simhash path: first batch differs from the "
+                             "kernel's fmaf chain")
     if not (torch.equal(sig[:batch], want) or bool(near)):
         raise AssertionError("simhash path: first batch differs from the "
                              "plain version")
@@ -1404,9 +1531,11 @@ def main(argv=None) -> int:
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes; dct_mm "
         "rtol 1e-5 atol 1e-5, bit-equal across batch sizes; "
         "fused_query distances rtol 1e-5 atol 1e-6 and ids equal at "
-        "distinct distances; merge bit-identical; quantized_query int8 at "
-        "p in {1, 2} bit-identical, else as fused_query; rerank rtol 1e-5 "
-        "atol 1e-6; simhash_pack bits equal where |proj| >= 1e-5")
+        "distinct distances; merge bit-identical (the select route writes "
+        "a -0.0 as +0.0); quantized_query int8 at p in {1, 2} "
+        "bit-identical, else as fused_query; rerank rtol 1e-5 atol 1e-6; "
+        "simhash_pack bits equal where |proj| >= 1e-5 and bit-identical to "
+        "its fmaf chain")
     errs = {}
     errs["hash_mm"] = max(check_hash_mm(gen, m, 64, 32)
                           for m in (8, 32, 128, 256))
@@ -1480,6 +1609,7 @@ def main(argv=None) -> int:
     for nq in (32, 128):
         for dt in (torch.float32, i8, bf):
             check_query_ties(gen, nq, dt)
+    check_query_ties_seeds()
     errs["rerank"] = check_rerank(gen, 128, 40)
     check_rerank(gen, 128, 40, p=1.0)
     check_rerank(gen, 9, 200, n=100, p=1.5)
@@ -1490,6 +1620,12 @@ def main(argv=None) -> int:
     check_simhash(gen, 130, 64, 96)
     check_simhash(gen, 8, 16, 32)
     check_simhash(gen, 37, 100, 256)
+    # the K7 edges draw from their own generator, so the checks before them
+    # keep their inputs
+    gen16 = torch.Generator().manual_seed(16)
+    errs["simhash_pack"] = max(errs["simhash_pack"],
+                               check_simhash_shapes(gen16))
+    check_simhash_batch_invariance(gen16)
 
     log("[4/7] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.hashes import SimHash
 from .core.index import Family, LSHIndexState
 from .kernels import dispatch
 from .serve.segments import Segment
@@ -41,6 +42,13 @@ def family_from_numpy(alpha, b, mix, device=None) -> Family:
     mix64 = np.asarray(mix).astype(np.uint32).astype(np.int64)
     return (_tensor(alpha, torch.float32, dev), _tensor(b, torch.float32, dev),
             _tensor(mix64, torch.int64, dev))
+
+
+def simhash_from_numpy(alpha, device=None) -> SimHash:
+    """A JAX ``SimHash``'s ``alpha`` (N, K) -> the port's ``SimHash`` on
+    ``device``, f32."""
+    return SimHash(alpha=_tensor(alpha, torch.float32,
+                                 dispatch.resolve_device(device)))
 
 
 def state_from_numpy(alpha, b, mix, table, counts, db, device=None

@@ -44,4 +44,34 @@ inline cudaError_t allow_dynamic_smem_once(size_t max_bytes) {
   return err;
 }
 
+// cp.async: a copy from device memory into shared memory that runs while
+// the thread goes on (16 bytes on the vector path, else 4), gathered into
+// groups by commit() and waited for by wait<N>() (all but the newest N
+// groups complete).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <bool kVec>
+__device__ __forceinline__ void copy(float* dst, const float* src) {
+  if constexpr (kVec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src));
+  }
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
 }  // namespace repro_torch

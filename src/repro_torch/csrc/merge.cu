@@ -14,14 +14,18 @@
 //
 //    Keys.  A pair becomes one 64-bit key whose unsigned order is the
 //    network's order: the high word is the float's order-preserving bits
-//    (all bits flipped when the sign is set, else the sign bit set), the
-//    low word id ^ 0x80000000 (so -1 < 0 < INT32_MAX).  On NaN-free pairs
-//    the key is a bijection, and decoding it gives back the pair's bits, so
-//    the output is bit-identical to the network's first n_out columns.  The
-//    one exception is -0.0, which the network treats as equal to +0.0 and
-//    does not order stably: the selection route's inputs hold no -0.0 (the
-//    path's distances are sums of non-negative terms from +0.0, and masked
-//    slots are +inf).
+//    (the bits negated, two's complement, when the sign is set, else the
+//    sign bit set), the low word id ^ 0x80000000 (so -1 < 0 < INT32_MAX).
+//    Negation sends -0.0 to +0.0's word: the network calls the two equal
+//    and orders them by id, and so does the key, at no cost over a bitwise
+//    not.  On NaN-free pairs decoding a key gives back the pair's bits, so
+//    the output is bit-identical to the network's first n_out columns, but
+//    for the sign of zero: a -0.0 distance comes out as +0.0.  It cannot be
+//    kept: the network leaves pairs that are equal in its order (say (-0.0,
+//    5) and (+0.0, 5)) where its compare pattern puts them, which no
+//    selection reproduces.  The path's distances are sums of non-negative
+//    terms from +0.0, and masked slots +inf, so they never hold -0.0 and
+//    the path's outputs are the network's bit for bit.
 //
 //    Design.  A row is split over a cluster of G <= 4 blocks (the plan in
 //    kernels/merge.py: one wave of at most 264 blocks), rank r owning the
@@ -176,8 +180,9 @@ struct SelectArgs {
 };
 
 __device__ __forceinline__ unsigned long long encode(float d, int id) {
+  // -0.0 (0x80000000) negates to itself, +0.0's word: equal, ties by id
   unsigned b = __float_as_uint(d);
-  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  b = (b & 0x80000000u) ? 0u - b : (b | 0x80000000u);
   return (static_cast<unsigned long long>(b) << 32) |
          (static_cast<unsigned>(id) ^ 0x80000000u);
 }
@@ -186,7 +191,7 @@ __device__ __forceinline__ void emit(const SelectArgs& a, size_t at,
                                      unsigned long long key) {
   const unsigned hi = static_cast<unsigned>(key >> 32);
   const float d = __uint_as_float((hi & 0x80000000u) ? (hi ^ 0x80000000u)
-                                                     : ~hi);
+                                                     : 0u - hi);
   const int id = static_cast<int>(static_cast<unsigned>(key) ^ 0x80000000u);
   a.out_d[at] = d;
   a.out_i[at] = (a.mask_invalid && isinf(d)) ? -1 : id;

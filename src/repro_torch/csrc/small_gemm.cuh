@@ -51,32 +51,6 @@ __host__ __device__ constexpr int smem_bytes(int rows, int stages) {
   return 4 * (stages * (rows * kDepth + kDepth * kCols) + kCols);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <bool kVec>
-__device__ __forceinline__ void copy(float* dst, const float* src) {
-  if constexpr (kVec) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src));
-  }
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // Copies one depth tile [t0, t0 + dk) of A's column tile into `as`
 // (kDepth x kCols), or of the block's rows of X into `xs` (rows x kDepth).
 // On the vector path one request moves 4 floats; t0, dk and N are then

@@ -22,6 +22,13 @@ from .rerank import rerank_distances
 from .simhash_pack import simhash_pack
 
 
+def pstable_hash(x, alpha, b, r: float):
+    """p-stable hash values ``floor((x @ alpha) / r + b)`` (Eq. 5): x (B,
+    N) f32; alpha (N, L*K); b (L*K,).  Returns (B, L*K) int32.  K1 on the
+    card, as :func:`pstable_hash_proj`, its projections dropped."""
+    return pstable_hash_proj(x, alpha, b, r)[0]
+
+
 def pstable_hash_proj(x, alpha, b, r: float):
     """Hashes and pre-floor projections: ``proj = (x @ alpha) / r + b``,
     ``hashes = floor(proj)``.  x (B, N) f32; alpha (N, L*K); b (L*K,).
@@ -107,7 +114,10 @@ def merge_topk(dists, ids, k: int):
     ascending under the total (distance, id) order, (+inf, -1) padded --
     the order that makes a segmented query reproduce a single index's.  On
     the card that is one launch of K3's select route (the masking of
-    empty slots inside it) when k <= 128, after the padding when M < k."""
+    empty slots inside it) when k <= 128, after the padding when M < k.
+    ``-0.0`` and ``+0.0`` are equal in that order (ties by id) on both
+    devices; the card's select route writes either as ``+0.0``, the CPU
+    keeps the input's sign."""
     dists, ids = _pad_to_k(dists, ids, k)
     if dispatch.use_kernel(dists):
         return merge_topk_kernel(dists.contiguous(),

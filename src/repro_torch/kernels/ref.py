@@ -107,12 +107,53 @@ def simhash_pack_ref(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     bit j of word w = column 32w+j.  The words are summed in int64 (torch
     widens an int32 sum) and their low 32 bits reinterpreted as int32, so
     bit 31 gives a negative word as JAX's wrapping int32 sum does."""
-    bits = (x.float() @ alpha.float() >= 0).to(torch.int64)
+    return _pack32(x.float() @ alpha.float() >= 0)
+
+
+def _pack32(bits: torch.Tensor) -> torch.Tensor:
+    """(B, K) bool -> (B, K/32) int32 words, bit j of word w = column
+    32w+j."""
+    bits = bits.to(torch.int64)
     words = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 32, 32)
-    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
     packed = (words << shifts).sum(dim=-1)
     return torch.where(packed >= 2 ** 31, packed - 2 ** 32,
                        packed).to(torch.int32)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+          ) -> torch.Tensor:
+    """fp32 ``fmaf(a, b, c)``, correctly rounded, for finite inputs.  The
+    product is exact in float64, and TwoSum gives the float64 sum's exact
+    error; rounding that sum to fp32 is then right except where it lies
+    exactly halfway between two floats, where the error's sign decides."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    up = torch.nextafter(r, torch.full_like(r, torch.inf))
+    down = torch.nextafter(r, torch.full_like(r, -torch.inf))
+    rd = r.double()
+    half_up = (s > rd) & (s == (rd + up.double()) / 2)
+    half_down = (s < rd) & (s == (rd + down.double()) / 2)
+    r = torch.where(half_up & (err > 0), up, r)
+    return torch.where(half_down & (err < 0), down, r)
+
+
+def simhash_pack_chain_ref(x: torch.Tensor, alpha: torch.Tensor
+                           ) -> torch.Tensor:
+    """:func:`simhash_pack_ref` in the kernel's own arithmetic, bit for
+    bit: each projection one ``fmaf`` chain from 0.0 over t = 0 .. N-1 in
+    order (:func:`fma32`), then ``>= 0`` and the packing.  Slow (N passes
+    over (B, K)); for checks of K7 on the card."""
+    x, alpha = x.float(), alpha.float()
+    acc = x.new_zeros((x.shape[0], alpha.shape[1]))
+    for t in range(x.shape[1]):
+        acc = fma32(x[:, t:t + 1].expand_as(acc), alpha[t].expand_as(acc),
+                    acc)
+    return _pack32(acc >= 0)
 
 
 # -- K3 merge: the bitonic (distance, id) network -----------------------------

@@ -10,9 +10,11 @@ need not have.)
 
 Tolerances as in ``chip_smoke.py``: projections allclose and hashes equal
 away from a bucket boundary, embeddings allclose, top-k distances allclose
-with ids equal where distances are distinct, the merge bit-identical, the
-int8 quantized query bit-identical (its sums are exact integers), simhash
-bits equal away from |x @ A| < 1e-5.
+with ids equal where distances are distinct, the merge bit-identical (the
+select route writes a -0.0 as +0.0), the int8 quantized query
+bit-identical (its sums are exact integers), bf16 tied distances rtol 1e-5
+(K5's contract), simhash bits equal away from |x @ A| < 1e-5 and
+bit-identical to the kernel's fmaf chain.
 """
 
 import pytest
@@ -250,6 +252,44 @@ def test_merge_topk_answers_a_100000_pair_row(gen):
         _assert_pairs(ops.merge_topk(dc, ic, k), _merge_plain(dc, ic, k))
 
 
+def _positive_zero(d):
+    """A -0.0 written as +0.0: what K3's select route returns for it."""
+    return torch.where(d == 0, torch.zeros_like(d), d)
+
+
+@pytest.mark.parametrize("rows,m,n_out", [(32, 2570, 10), (128, 10320, 40),
+                                          (128, 40, 10), (5, 300, 128),
+                                          (3, 41280, 128)])
+def test_merge_select_route_signed_zeros(gen, rows, m, n_out):
+    """Rows whose distances are half +0.0 or -0.0: the select route orders
+    them as the plain network does (equal, ties by id), so its ids are the
+    network's, and its distances too, bit for bit, but for a -0.0, which
+    it writes as +0.0."""
+    from repro_torch.kernels import merge
+    d, i = _merge_pairs(gen, rows, m)
+    pick = torch.randint(0, 4, (rows, m), generator=gen)
+    d = torch.where(pick == 0, -0.0, torch.where(pick == 1, 0.0, d))
+    dc, ic = d.cuda(), i.cuda()
+    sd, si = ref.sort_pairs(dc, ic)
+    got = merge.sort_pairs_kernel(dc, ic, n_out=n_out)
+    _assert_pairs(got, (_positive_zero(sd[:, :n_out]), si[:, :n_out]))
+    want = _merge_plain(dc, ic, n_out)
+    _assert_pairs(ops.merge_topk(dc, ic, n_out),
+                  (_positive_zero(want[0]), want[1]))
+
+
+def test_merge_topk_signed_zero_probe_row(gen):
+    """Sorted by the float's bits, -0.0 would come before +0.0 and give ids
+    [3, 5, 9, 1]; the network calls them equal and takes [1, 3, 4, 5]."""
+    d = torch.tensor([[0.0, -0.0, 0.0, -0.0, 1.0, 2.0, -0.0, 0.0]])
+    i = torch.tensor([[7, 3, 1, 5, 0, 2, 9, 4]], dtype=torch.int32)
+    sd, si = ops.merge_topk(d.cuda(), i.cuda(), 4)
+    pd, pi = ops.merge_topk(d, i, 4)
+    assert si.tolist() == pi.tolist() == [[1, 3, 4, 5]]
+    assert torch.equal(sd.cpu(), pd)            # as values: -0.0 == +0.0
+    assert not torch.signbit(sd).any()
+
+
 def test_merge_topk_is_one_launch(gen):
     from repro_torch.kernels import merge
     for rows, m, k in ((32, 2570, 10), (128, 10320, 40), (128, 40, 10),
@@ -386,7 +426,14 @@ def test_query_kernels_ties_across_cluster_ranks(gen, dtype, nq):
         d, i = ops.quantized_query_topk(q, db, scale, ids, k)
         dp, ip = ref.quantized_topk_ref(q, db, scale, ids, k)
     n_tied = len(want)
-    assert torch.equal(d[:, :n_tied], dp[:, :n_tied])
+    if dtype == torch.bfloat16:
+        # K5's bf16 contract: the plain version and the kernel sum the 64
+        # products in different orders; following the plain order measured
+        # slower (tools/probe_sum_order.py)
+        torch.testing.assert_close(d[:, :n_tied], dp[:, :n_tied], rtol=1e-5,
+                                   atol=0)
+    else:
+        assert torch.equal(d[:, :n_tied], dp[:, :n_tied])
     assert (d[:, :n_tied] == d[:, :1]).all()
     assert torch.equal(i, ip)
     assert i[:, :n_tied].tolist() == [want] * nq
@@ -493,6 +540,77 @@ def test_simhash_pack_kernel(gen, m, n, k):
     bits_p = ((want[..., None] >> shifts) & 1).reshape(m, k)
     near = (x @ a).abs() < 1e-5
     assert torch.equal(bits[~near], bits_p[~near])
+
+
+SIMHASH_SHAPES = [(512, 64, 1024), (37, 50, 96), (1, 64, 32),
+                  (513, 100, 160), (4096, 200, 2048)]
+
+
+def _simhash_bits(sig, m, k):
+    shifts = torch.arange(32, device=sig.device)
+    return ((sig[..., None] >> shifts) & 1).reshape(m, k)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m,n,k", SIMHASH_SHAPES)
+def test_simhash_pack_kernel_shapes(gen, m, n, k, offset):
+    """K7 at the benchmark's shape and the edges, aligned and 1 float past
+    alignment (the scalar path): bit-identical to its fmaf chain
+    (``ref.simhash_pack_chain_ref``, the arithmetic of the SIMT kernel it
+    replaced), bits equal to the plain version's away from |x @ A| <
+    1e-5, and a row of +0.0 and one of -0.0 give words of -1."""
+    x = torch.randn((m, n), generator=gen)
+    x[0] = 0.0
+    if m > 1:
+        x[1] = -0.0
+    x = _on_card(x, offset)
+    a = _on_card(torch.randn((n, k), generator=gen), offset)
+    before = dispatch.launches["simhash_pack"]
+    sig = ops.simhash_signature(x, a)
+    assert dispatch.launches["simhash_pack"] == before + 1
+    assert sig.shape == (m, k // 32) and sig.dtype == torch.int32
+    assert torch.equal(sig, ref.simhash_pack_chain_ref(x, a))
+    near = (x.double() @ a.double()).abs() < 1e-5
+    bits = _simhash_bits(sig, m, k)
+    bits_p = _simhash_bits(ref.simhash_pack_ref(x, a), m, k)
+    assert torch.equal(bits[~near], bits_p[~near])
+    assert (sig[:min(m, 2)] == -1).all()
+
+
+def test_simhash_pack_kernel_batch_invariant(gen):
+    """The same rows in calls of 1, 37 and 512 rows give equal words."""
+    x = torch.randn((512, 64), generator=gen).cuda()
+    a = torch.randn((64, 1024), generator=gen).cuda()
+    full = ops.simhash_signature(x, a)
+    for lo, hi in ((0, 1), (5, 42), (511, 512)):
+        assert torch.equal(ops.simhash_signature(x[lo:hi], a), full[lo:hi])
+
+
+@pytest.mark.parametrize("k", [100, 1024])
+def test_simhash_family_on_the_card(gen, k):
+    """SimHash on the card (K7) against the same family on the CPU (the
+    plain version), 3-D input: bits equal away from |x @ alpha| < 1e-5,
+    the pad bits past K clear on both, and Hamming distances equal where
+    no bit is near 0."""
+    from repro_torch.core.hashes import SimHash
+    alpha = torch.randn((64, k), generator=gen)
+    x = torch.randn((3, 40, 64), generator=gen)
+    fam_c, fam_g = SimHash(alpha=alpha), SimHash(alpha=alpha.cuda())
+    before = dispatch.launches["simhash_pack"]
+    sig_g = fam_g(x.cuda())
+    assert dispatch.launches["simhash_pack"] == before + 1
+    sig_c = fam_c(x)
+    assert sig_g.shape == sig_c.shape == (3, 40, -(-k // 32))
+    near = ((x.double() @ alpha.double()).abs() < 1e-5).reshape(120, k)
+    words = sig_c.shape[-1]
+    bits_g = _simhash_bits(sig_g.reshape(120, words).cpu(), 120, 32 * words)
+    bits_c = _simhash_bits(sig_c.reshape(120, words), 120, 32 * words)
+    assert torch.equal(bits_g[:, :k][~near], bits_c[:, :k][~near])
+    assert not bits_g[:, k:].any() and not bits_c[:, k:].any()
+    ok = ~near.any(dim=1).reshape(3, 40)
+    h_g = SimHash.hamming(sig_g[:, :1], sig_g).cpu()
+    h_c = SimHash.hamming(sig_c[:, :1], sig_c)
+    assert torch.equal(h_g[ok & ok[:, :1]], h_c[ok & ok[:, :1]])
 
 
 FP32_PATH = ("hash_mm", "dct_mm", "fused_query", "merge")

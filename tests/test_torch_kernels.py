@@ -227,6 +227,68 @@ def test_merge_topk_matches_jax(width, k):
     _assert_bits(si.numpy(), ij)
 
 
+# The ROADMAP's probe row: -0.0 sorted below +0.0 would give ids [3, 5, 9,
+# 1]; the network calls them equal and breaks the tie by id.
+PROBE_D = [[0.0, -0.0, 0.0, -0.0, 1.0, 2.0, -0.0, 0.0]]
+PROBE_I = [[7, 3, 1, 5, 0, 2, 9, 4]]
+
+
+def _signed_zero_pairs(rows, width, seed):
+    """Half the distances +0.0 or -0.0, the rest as _pairs draws them."""
+    d, i = _pairs(rows, width, seed)
+    pick = np.random.default_rng(seed + 1).integers(0, 4, size=d.shape)
+    d = np.where(pick == 0, np.float32(-0.0), np.where(pick == 1, 0.0, d))
+    return d.astype(np.float32), i
+
+
+@pytest.mark.parametrize("case", ["probe", 8, 40, 257])
+def test_merge_topk_orders_signed_zeros_as_jax_bitonic(case):
+    if case == "probe":
+        d, i = np.array(PROBE_D, np.float32), np.array(PROBE_I, np.int32)
+        k = 4
+    else:
+        d, i = _signed_zero_pairs(4, case, seed=case)
+        k = min(case, 10)
+    sd, si = ops.merge_topk(_t(d), _t(i), k)
+    dj, ij = jops.merge_topk(jnp.asarray(d), jnp.asarray(i), k,
+                             mode="bitonic")
+    _assert_bits(sd.numpy(), dj)
+    _assert_bits(si.numpy(), ij)
+    ds, is_ = ref.sort_pairs(_t(d), _t(i))
+    dj, ij = jmerge.sort_pairs(jnp.asarray(d), jnp.asarray(i))
+    _assert_bits(ds.numpy(), dj)
+    _assert_bits(is_.numpy(), ij)
+    if case == "probe":
+        assert si.tolist() == [[1, 3, 4, 5]]
+
+
+def _select_keys(d, i):
+    """csrc/merge.cu's encode in numpy: the float's order bits (negated
+    when the sign is set, which sends -0.0 to +0.0's word, else the sign
+    bit set) above id ^ 0x80000000, as uint64."""
+    b = d.view(np.uint32).astype(np.uint64)
+    hi = np.where(b & 0x80000000, (2 ** 32 - b) & 0xFFFFFFFF, b | 0x80000000)
+    lo = (i.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+    return (hi << np.uint64(32)) | lo
+
+
+@pytest.mark.parametrize("case", ["probe", 8, 40, 257])
+def test_select_route_key_order_is_the_networks_on_signed_zeros(case):
+    """K3's select route sorts by its 64-bit keys: on rows of mixed +0.0 and
+    -0.0 the key order gives the network's ids, and its distances as
+    values (a -0.0 decodes as +0.0)."""
+    if case == "probe":
+        d, i = np.array(PROBE_D, np.float32), np.array(PROBE_I, np.int32)
+    else:
+        d, i = _signed_zero_pairs(4, case, seed=case)
+    order = np.argsort(_select_keys(d, i), axis=-1, kind="stable")
+    ds, is_ = ref.sort_pairs(_t(d), _t(i))
+    np.testing.assert_array_equal(np.take_along_axis(i, order, -1),
+                                  is_.numpy())
+    np.testing.assert_array_equal(np.take_along_axis(d, order, -1),
+                                  ds.numpy())
+
+
 def test_cpu_tensors_take_the_plain_versions():
     dispatch.reset_launches()
     x, a, b = _hash_inputs(8, 16, 8)

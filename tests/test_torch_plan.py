@@ -19,7 +19,8 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch.kernels import fused_query  # noqa: E402
-from repro_torch.kernels import merge, rerank, small_gemm  # noqa: E402
+from repro_torch.kernels import (merge, rerank, simhash_pack,  # noqa: E402
+                                 small_gemm)
 from repro_torch.kernels.fused_query import (KP, SMEM_LIMIT,  # noqa: E402
                                              SMEM_PER_BLOCK, _plan)
 
@@ -340,3 +341,69 @@ def test_rerank_plan_path_shape():
     """(128, 40, 64): 128 blocks of one row, 8 lanes a pair (four pairs a
     warp), two 16-byte loads a lane at once."""
     assert rerank.plan(128, 64) == rerank.Plan(1, 8, True, 256)
+
+
+# -- K7 simhash_pack's plan (csrc/simhash_pack.cu) ----------------------------
+
+SIM_MS = [1, 31, 32, 37, 512, 513, 4096]
+SIM_KS = [32, 64, 96, 128, 160, 1024, 2048]
+SIM_NS = [1, 16, 50, 64, 65, 100, 200]
+SIM_ROWS, SIM_DEPTH = 32, 64    # the kernel's rows a block, depth a stage
+
+
+def _sim_outputs(m, k, words):
+    """The kernel's walk: block b owns rows from (b // col_tiles) * 32 and
+    words from (b % col_tiles) * words; each (row, word) of the (m, k / 32)
+    result, counted by the block that stores it."""
+    col_tiles = -(-k // (32 * words))
+    blocks = col_tiles * -(-m // SIM_ROWS)
+    seen = Counter()
+    for blk in range(blocks):
+        row0 = (blk // col_tiles) * SIM_ROWS
+        word0 = (blk % col_tiles) * words
+        for r in range(row0, min(m, row0 + SIM_ROWS)):
+            for w in range(word0, min(k // 32, word0 + words)):
+                seen[(r, w)] += 1
+    return blocks, seen
+
+
+@pytest.mark.parametrize("k", SIM_KS)
+@pytest.mark.parametrize("m", SIM_MS)
+def test_simhash_plan_covers_every_word_once(m, k):
+    """Words a block 1, 2 or 4, the widest that k fills; the kernel's grid
+    for it stores every output word once."""
+    plan = simhash_pack.plan(m, 64, k)
+    assert plan.words in (1, 2, 4)
+    assert 32 * plan.words <= k or plan.words == 1
+    assert plan.words == 4 or 32 * 2 * plan.words > k
+    _, seen = _sim_outputs(m, k, plan.words)
+    assert len(seen) == m * (k // 32) and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("n", SIM_NS)
+def test_simhash_plan_depth_and_copy_width(n):
+    """The kernel's shared memory for the plan's words -- one stage (X 32 x
+    64 and A 64 x 32 * words floats) up to depth 64, two past it -- fits a
+    block's limit; 16-byte copies only with both pointers aligned and
+    n % 4 == 0."""
+    for k in SIM_KS:
+        for aligned in (True, False):
+            plan = simhash_pack.plan(512, n, k, aligned)
+            stage = 4 * (SIM_ROWS * SIM_DEPTH + SIM_DEPTH * 32 * plan.words)
+            assert (2 if n > SIM_DEPTH else 1) * stage <= merge.SMEM_LIMIT
+            assert plan.vec == (aligned and n % 4 == 0)
+
+
+@pytest.mark.parametrize("m,n,k,aligned,want", [
+    # the benchmark's shape: 16 x 8 = 128 blocks, one wave on 132 SMs
+    (512, 64, 1024, True, simhash_pack.Plan(4, True)),
+    (512, 64, 1024, False, simhash_pack.Plan(4, False)),
+    (37, 50, 96, True, simhash_pack.Plan(2, False)),
+    (1, 64, 32, True, simhash_pack.Plan(1, True)),
+    (513, 100, 160, True, simhash_pack.Plan(4, True)),
+    (4096, 200, 2048, True, simhash_pack.Plan(4, True)),
+])
+def test_simhash_plan_shapes(m, n, k, aligned, want):
+    assert simhash_pack.plan(m, n, k, aligned) == want
+    blocks, _ = _sim_outputs(m, k, want.words)
+    assert blocks <= H100_SMS or m > 512
