@@ -13,8 +13,10 @@ each of which raises on failure (the script then exits non-zero):
    card, at the main path's shapes and at edge shapes (K1 and K4 also on
    unaligned views, and bit for bit across batch sizes; K3's two routes
    bit for bit, the select route up to 41,280-pair rows and one row of
-   100,000, on duplicate-heavy rows, on mixed +0.0 / -0.0 rows and
-   through ``ops.merge_topk``; K6 at five widths and three metrics,
+   100,000, on duplicate-heavy rows, on mixed +0.0 / -0.0 rows (signs
+   kept) and through ``ops.merge_topk``; K2 and K5 at the stacked
+   launches' shapes, 258 segments x 32 and x 128 rows, K5 with one scale
+   per segment; K6 at five widths and three metrics,
    aligned and not; K7 bit for bit against its fmaf chain at five shapes,
    aligned and not, and across batch sizes; the tie check over 8 seeds);
 4. parity: the l2-basis pipeline at 8,192 items on the CPU (plain
@@ -23,18 +25,22 @@ each of which raises on failure (the script then exits non-zero):
 5. timings: each kernel, its plain version and a PyTorch library call,
    CUDA-event medians, with the bytes and operations for the bound, and
    the host time per call of the kernel's wrapper and of the library
-   call, between CUDA events and on the host clock; K2 and K5 at both
-   micro-batch shapes the path launches (32 and 128 rows), K1 at 32, 128
+   call, between CUDA events and on the host clock; K2 and K5 at one
+   segment of both micro-batch shapes (32 and 128 rows) and at the stacked
+   launches over 258 segments (8,256 and 33,024 rows), K1 at 32, 128
    and 256 rows, K3 at the fp32 and int8 fan-ins, at 1,032 int8 segments
    and at the survivor sort (with ``torch.topk`` on int64 keys beside the
    two-sort library call); and the launch floor, an empty kernel called
    through K1's ctypes route and launched as K1 is;
 6. main path: ``repro_torch.launch.serve`` filled to 262,144 items
-   (256 sealed segments), then 20 demo steps; launch counts read around it;
+   (256 sealed segments), then 20 demo steps; launch counts read around
+   it; two profiled 32-row batches (kernels and launches per batch); the
+   stacked query bit-equal to the per-segment fan-out at 32 and 128 rows;
 7. int8 path: the same run with ``precision="int8"`` (phase 6's tenant
-   still alive), then both tenants answer the same 64 probes; and the
-   simhash path: ``SimHash.__call__`` over every live item.  Launch
-   counts are read around each.
+   still alive), profiled and held against the fan-out likewise, then
+   both tenants answer the same 64 probes; and the simhash path:
+   ``SimHash.__call__`` over every live item.  Launch counts are read
+   around each.
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -491,6 +497,110 @@ def check_query_ties_seeds(seeds=8):
         f"plain version's in {bf16_bit_equal} of {n_bf16}")
 
 
+STACK_SEGMENTS = 258      # sealed segments x rows: the stacked launches
+
+
+def flat_rows(local, cap):
+    """(n_seg, nq, C) local slots -> (n_seg * nq, C) int32 rows of a stack
+    of n_seg segments of ``cap`` rows (``core.index.flat_rows``, written
+    out here so that the timings also run in a checkout without it)."""
+    import torch
+    base = (torch.arange(local.shape[0], device=local.device,
+                         dtype=torch.int32) * cap)[:, None, None]
+    return torch.where(local >= 0, local + base, -1).reshape(
+        -1, local.shape[-1]).to(torch.int32).contiguous()
+
+
+def stacked_inputs(gen, n_seg, nq, dtype, cap=1024, c=1024, n=64):
+    """One stacked scorer launch's inputs: n_seg segments of ``cap`` rows
+    (fp32, or int8/bf16 codes with one scale each, of other magnitudes),
+    nq queries repeated per segment, and (n_seg * nq, c) flat candidate
+    rows, a quarter of the slots valid, each block of nq rows within its
+    segment's rows.  Returns (q, db, scale or None, ids, per-segment
+    (codes, scale) list or None)."""
+    import torch
+    from repro_torch.kernels import quantize
+    local = torch.randint(0, cap, (n_seg, nq, c), generator=gen,
+                          dtype=torch.int32)
+    local[torch.rand((n_seg, nq, c), generator=gen) >= 0.25] = -1
+    ids = flat_rows(local.cuda(), cap)
+    q = torch.randn((nq, n), generator=gen).cuda().repeat(n_seg, 1)
+    if dtype == torch.float32:
+        return q, torch.randn((n_seg * cap, n), generator=gen).cuda(), \
+            None, ids, None
+    tier = "int8" if dtype == torch.int8 else "bf16"
+    segs = [quantize.encode(torch.randn((cap, n), generator=gen).cuda()
+                            * (1 + s % 5), tier) for s in range(n_seg)]
+    return (q, torch.cat([cd for cd, _ in segs]),
+            torch.stack([sc for _, sc in segs]), ids, segs)
+
+
+def check_stacked_scorers(gen):
+    """K2 and K5 at the stacked launches' shapes (STACK_SEGMENTS segments
+    x 32 and x 128 rows, C 1024, k 10 and 40) against their plain
+    versions: fp32 and bf16 distances rtol 1e-5 atol 1e-6 with ids equal
+    at distinct distances, int8 bit-identical; K5 with one scale per
+    segment, and the first, middle and last segment's block of rows bit
+    for bit equal to that segment's own launch."""
+    import torch
+    from repro_torch.kernels import fused_query, quantized_query, ref
+    worst = {"fused_query": 0.0, "quantized_query": 0.0}
+    for nq in (32, 128):
+        for dtype in (torch.float32, torch.int8, torch.bfloat16):
+            q, db, scale, ids, segs = stacked_inputs(
+                gen, STACK_SEGMENTS, nq, dtype)
+            k = 10 if dtype == torch.float32 else 40
+            plan = fused_query._plan(q.shape[0], 1024, 64,
+                                     db.element_size())
+            tag = (f"stacked {dtype} {STACK_SEGMENTS} x {nq} rows (G "
+                   f"{plan.cluster}, {plan.smem} bytes of shared memory)")
+            if segs is None:
+                d, i = fused_query.fused_query_topk(q, db, ids, k)
+                dp, ip = ref.fused_query_topk_ref(q, db, ids, k)
+                dfull, _ = ref.fused_query_topk_ref(q, db, ids, 1024)
+            else:
+                d, i = quantized_query.quantized_query_topk(q, db, scale,
+                                                            ids, k)
+                dp, ip = ref.quantized_topk_ref(q, db, scale, ids, k)
+                dfull, _ = ref.quantized_topk_ref(q, db, scale, ids, 1024)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(dp)
+            if dtype == torch.int8:
+                ok = torch.equal(bits(d), bits(dp)) and torch.equal(i, ip)
+            else:
+                tie = ~_distinct(dp, dfull, k) & fin
+                ok = (torch.equal(fin, torch.isfinite(d))
+                      and torch.allclose(d[fin], dp[fin], rtol=1e-5,
+                                         atol=1e-6)
+                      and not bool(((i != ip) & ~tie).sum())
+                      and torch.equal(i[~fin], ip[~fin]))
+            if not ok:
+                raise AssertionError(f"{tag}: differs from the plain version")
+            name = "fused_query" if segs is None else "quantized_query"
+            worst[name] = max(worst[name],
+                              float((d[fin] - dp[fin]).abs().max()))
+            for s_ in sorted({0, STACK_SEGMENTS // 2, STACK_SEGMENTS - 1}):
+                blk = slice(s_ * nq, (s_ + 1) * nq)
+                loc = torch.where(ids[blk] >= 0, ids[blk] - s_ * 1024, -1)
+                if segs is None:
+                    ds, is_ = fused_query.fused_query_topk(
+                        q[blk].contiguous(), db[s_ * 1024:(s_ + 1) * 1024],
+                        loc.contiguous(), k)
+                else:
+                    ds, is_ = quantized_query.quantized_query_topk(
+                        q[blk].contiguous(), *segs[s_], loc.contiguous(), k)
+                if not (torch.equal(bits(d[blk]), bits(ds)) and torch.equal(
+                        i[blk], torch.where(is_ >= 0, is_ + s_ * 1024, -1))):
+                    raise AssertionError(f"{tag}: segment {s_}'s rows differ "
+                                         "from its own launch")
+            log(f"  {tag}: ok against the plain version, segments 0, "
+                f"{STACK_SEGMENTS // 2} and {STACK_SEGMENTS - 1} bit-equal "
+                "to their own launches")
+            del q, db, scale, ids, segs, dfull
+            torch.cuda.empty_cache()
+    return worst
+
+
 def check_rerank(gen, b, c, n=64, p=2.0, offset=0, invalid_rows=0,
                  quiet=False):
     """K6 against its plain version: rtol 1e-5 atol 1e-6, +inf exactly
@@ -680,12 +790,20 @@ def merge_pairs(gen, rows, m, kind="ties"):
     return d, i
 
 
-def positive_zero(d):
-    """``d`` with -0.0 written as +0.0: what K3's select route returns for
-    a -0.0 distance (it orders the two as equal, ties by id, as the network
-    does, but cannot keep the sign)."""
+def mixed_zero_slots(d, i, out_d, out_i):
+    """Output slots holding a zero distance whose id the row pairs with
+    both -0.0 and +0.0: the one case no selection reproduces (the network
+    leaves such equal pairs where its compare pattern puts them); there
+    the checks compare distances as values, elsewhere bit for bit."""
     import torch
-    return torch.where(d == 0, torch.zeros_like(d), d)
+    neg = (d == 0) & torch.signbit(d)
+    pos = (d == 0) & ~torch.signbit(d)
+    mixed = torch.zeros_like(out_i, dtype=torch.bool)
+    for r in range(0, d.shape[0], 8):            # (8, n_out, M) at a time
+        same = out_i[r:r + 8, :, None] == i[r:r + 8, None, :]
+        mixed[r:r + 8] = ((same & neg[r:r + 8, None, :]).any(-1)
+                          & (same & pos[r:r + 8, None, :]).any(-1))
+    return mixed & (out_d == 0)
 
 
 def merge_topk_plain(d, i, k):
@@ -702,13 +820,21 @@ def check_merge_select(gen):
     """K3's select route bit for bit against the plain network's first
     n_out columns, and ops.merge_topk against its CPU route (on the CPU up
     to 2^20 pairs, else the same code on the card), one launch each; on
-    rows holding -0.0, a -0.0 of the network's is +0.0 of the kernel's."""
+    rows holding -0.0 too, signs of zero included, but where a row pairs
+    one id with both signs (``mixed_zero_slots``)."""
     import torch
     from repro_torch.kernels import dispatch, merge, ops, ref
 
-    def same(a, b):
-        return (torch.equal(bits(a[0]), bits(b[0]))
-                and torch.equal(a[1], b[1]))
+    def same(a, b, d, i):
+        """Bit for bit, but at mixed_zero_slots (as values there)."""
+        a = (a[0].to(b[0].device), a[1].to(b[1].device))
+        if not torch.equal(a[1], b[1]):
+            return False
+        if not bool((d == 0).any()):
+            return torch.equal(bits(a[0]), bits(b[0]))
+        ex = mixed_zero_slots(d.to(b[0].device), i.to(b[1].device), *b)
+        return (torch.equal(bits(a[0])[~ex], bits(b[0])[~ex])
+                and torch.equal(a[0][ex], b[0][ex]))
 
     def one(d, i, ks, tag, topk=True):
         dc, ic = on_card(d, tag[1]), on_card(i, tag[2])
@@ -719,14 +845,10 @@ def check_merge_select(gen):
             want = ops.merge_topk(d, i, max(ks))
         elif topk:
             want = merge_topk_plain(dc, ic, max(ks))
-        if bool(torch.signbit(d[d == 0]).any()):
-            # equal as values where the network keeps a -0.0
-            sd = positive_zero(sd)
-            if topk:
-                want = (positive_zero(want[0]), want[1])
+        dm = torch.where(i < 0, torch.inf, d)    # merge_topk's masking
         for k in ks:
             if not same(merge.sort_pairs_kernel(dc, ic, n_out=k),
-                        (sd[:, :k], si[:, :k])):
+                        (sd[:, :k], si[:, :k]), dc, ic):
                 raise AssertionError(f"merge select {tag} n_out={k}: not "
                                      "bit-identical to the plain network")
             if not topk:
@@ -735,8 +857,7 @@ def check_merge_select(gen):
             got = ops.merge_topk(dc, ic, k)
             if dispatch.launches["merge"] != before + 1:
                 raise AssertionError(f"merge_topk {tag}: not one launch")
-            if not same((got[0].to(want[0].device), got[1].to(
-                    want[1].device)), (want[0][:, :k], want[1][:, :k])):
+            if not same(got, (want[0][:, :k], want[1][:, :k]), dm, i):
                 raise AssertionError(f"merge_topk {tag} k={k}: not "
                                      "bit-identical to its CPU route")
         return 1
@@ -775,12 +896,15 @@ def check_merge_select(gen):
     i = torch.tensor([[7, 3, 1, 5, 0, 2, 9, 4]], dtype=torch.int32)
     n += one(d, i, [4], (1, 0, 0))
     got = ops.merge_topk(d.cuda(), i.cuda(), 4)
-    if got[1].tolist() != [[1, 3, 4, 5]]:
-        raise AssertionError(f"merge_topk on +-0.0: ids {got[1].tolist()}")
+    if got[1].tolist() != [[1, 3, 4, 5]] or torch.signbit(
+            got[0]).tolist() != [[False, True, False, True]]:
+        raise AssertionError(f"merge_topk on +-0.0: ids {got[1].tolist()}, "
+                             f"distances {got[0].tolist()}")
     log(f"  merge select route on rows of mixed +0.0 and -0.0: {n} inputs, "
-        "ids equal to the plain network's and distances bit-identical but "
-        "for -0.0, written +0.0; the mixed row [0, -0, 0, -0, 1, 2, -0, 0] "
-        "gives ids [1, 3, 4, 5]")
+        "ids equal to the plain network's and distances bit-identical, "
+        "signs of zero included (as values only where a row pairs one id "
+        "with both signs); the mixed row [0, -0, 0, -0, 1, 2, -0, 0] gives "
+        "ids [1, 3, 4, 5] and distances [0, -0, 0, -0]")
 
 
 # -- phase 4: CPU vs card parity ----------------------------------------------
@@ -878,8 +1002,9 @@ def int8_parity_run():
     """The int8 tier at 8,192 items on the CPU and on the card, from one
     set of embeddings (embedded once on the CPU, so K4 is not in the
     comparison: phase 4's fp32 run covers it).  The gids must be equal.
-    Also captures, from the card's run, a real K5 input (one sealed
-    segment against a 128-row micro-batch) and a real K6 input (the
+    Also captures, from the card's run, a real K5 input (the sealed
+    segments against a 128-row micro-batch: one launch over all of them,
+    or in an earlier checkout one segment's) and a real K6 input (the
     survivor rows of that batch)."""
     import torch
     from repro_torch import convert
@@ -1005,13 +1130,21 @@ def launch_floor(fn, x, a, b, r):
                 bytes=0, ops=0)
 
 
-def _k2_record(q, db, cands, kk):
+FEW = dict(warmup=1, reps=3, replays=3)  # plain and library calls that
+                                         # materialise gigabytes
+
+
+def _k2_record(q, db, cands, kk, big=False):
+    """K2 at one shape; ``big``: a stacked launch, whose plain version and
+    library call materialise (rows, C, 64) floats -- timed with FEW calls,
+    and the library call's host times left out."""
     import torch
     from repro_torch.kernels import fused_query, ref
     nq, c = cands.shape
     valid = (cands >= 0) & (cands < db.shape[0])
     rows_needed = int(torch.unique(cands[valid]).numel())
     n_valid = int(valid.sum())
+    few = FEW if big else {}
 
     def lib_fused():
         emb = db[cands.clamp(min=0).long()]
@@ -1024,43 +1157,74 @@ def _k2_record(q, db, cands, kk):
         ms=time_ms(lambda: fused_query.fused_query_topk(q, db, cands, kk)),
         **host_times(lambda: fused_query.fused_query_topk(q, db, cands,
                                                           kk)),
-        plain_ms=time_ms(lambda: ref.fused_query_topk_ref(q, db, cands, kk)),
-        library_ms=time_ms(lib_fused),
-        **host_times(lib_fused, "library_"),
+        plain_ms=time_ms(lambda: ref.fused_query_topk_ref(q, db, cands, kk),
+                         **few),
+        library_ms=time_ms(lib_fused, **few),
+        **({} if big else host_times(lib_fused, "library_")),
         bytes=4 * (nq * 64 + nq * c + rows_needed * 64 + 2 * nq * kk),
         ops=3 * 64 * n_valid)
 
 
-def _k5_record(qq, codes, scale, qids, kq, kw):
+def _k5_record(qq, codes, scale, qids, kq, kw, big=False):
+    """K5 at one shape, ``scale`` one f32 or one per segment of a stacked
+    launch (``big``: as in _k2_record).  A checkout whose K5 takes one
+    scale only gets no record for a stacked shape."""
     import torch
     from repro_torch.kernels import quantized_query, ref
     nq, c = qids.shape
     qval = (qids >= 0) & (qids < codes.shape[0])
     rows_needed = int(torch.unique(qids[qval]).numel())
     n_valid = int(qval.sum())
+    few = FEW if big else {}
+    srow = (scale if scale.numel() == 1 else scale.repeat_interleave(
+        nq // scale.numel())[:, None])
+    try:
+        quantized_query.quantized_query_topk(qq, codes, scale, qids, kq, **kw)
+    except ValueError as e:
+        log(f"  timing quantized_query at q {tuple(qq.shape)}: refused here "
+            f"({e})")
+        return None
 
     def lib_quantized():
-        qc = torch.round(qq / scale)
+        qc = torch.round(qq / srow)
         rows = codes[qids.clamp(min=0).long()].float()
         dist = torch.linalg.vector_norm(rows - qc[:, None, :], dim=-1)
         dist = torch.where(qids < 0, torch.inf, dist)
         dv, iv = torch.topk(dist, kq, largest=False)
-        return dv * scale, iv
+        return dv * srow, iv
     return dict(
         shape=f"q ({nq}, 64), codes {tuple(codes.shape)} {codes.dtype}, ids "
-              f"({nq}, {c}), k={kq}; {n_valid} valid candidates, "
-              f"{rows_needed} rows",
+              f"({nq}, {c}), k={kq}, {scale.numel()} scale(s); {n_valid} "
+              f"valid candidates, {rows_needed} rows",
         ms=time_ms(lambda: quantized_query.quantized_query_topk(
             qq, codes, scale, qids, kq, **kw)),
         **host_times(lambda: quantized_query.quantized_query_topk(
             qq, codes, scale, qids, kq, **kw)),
         plain_ms=time_ms(lambda: ref.quantized_topk_ref(qq, codes, scale,
-                                                        qids, kq, **kw)),
-        library_ms=time_ms(lib_quantized),
-        **host_times(lib_quantized, "library_"),
-        bytes=4 * (nq * 64 + nq * c + 1 + 2 * nq * kq)
+                                                        qids, kq, **kw),
+                         **few),
+        library_ms=time_ms(lib_quantized, **few),
+        **({} if big else host_times(lib_quantized, "library_")),
+        bytes=4 * (nq * 64 + nq * c + scale.numel() + 2 * nq * kq)
         + rows_needed * 64 * codes.element_size(),
         ops=3 * 64 * n_valid)
+
+
+def _stacked(q, table, ids, n_seg, scale=None):
+    """A real one-segment scorer input tiled into a stack of n_seg
+    segments: the queries repeated, the table's rows repeated (for int8,
+    each copy with its own scale, 1 + s % 5 times the segment's), the
+    candidate rows offset into each copy -- the stacked launch's shape
+    with the path's own candidate pattern in every segment."""
+    import torch
+    cap = table.shape[0]
+    local = ids[None].expand(n_seg, *ids.shape)
+    out = (q.repeat(n_seg, 1).contiguous(), table.repeat(n_seg, 1),
+           flat_rows(local, cap))
+    if scale is None:
+        return out
+    mult = 1 + torch.arange(n_seg, device=q.device) % 5
+    return out + ((scale.reshape(()) * mult).to(torch.float32),)
 
 
 def _fan_in(gen, rows, runs, k):
@@ -1173,11 +1337,14 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn):
         ops=2 * m * 64 * 64 + m * 64)
 
     # K2 at one segment of a 32-row (profiled) and a 128-row (the loop's
-    # chunk) micro-batch, real candidates
+    # chunk) micro-batch, real candidates: the delta's launch; and the same
+    # candidates tiled over STACK_SEGMENTS segments, the stacked launch
     kk = 10
     for rows, (q, db, cands) in sorted(k2_inputs.items()):
         rec["fused_query" if rows == 32 else f"fused_query@{rows}"] = \
             _k2_record(q, db, cands, kk)
+        rec[f"fused_query@{rows * STACK_SEGMENTS}"] = _k2_record(
+            *_stacked(q, db, cands, STACK_SEGMENTS), kk, big=True)
 
     # K3 at the fp32 fan-in (257 segments x k = 10, a 32-row batch)
     rec["merge"] = _k3_record(*_fan_in(gen, 32, 257, kk), kk)
@@ -1185,9 +1352,22 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn):
     # candidates, k = kq = 40), and at its first 32 rows: candidates are per
     # row, so they are what a 32-row batch would gather
     (qq, codes, scale, qids, kq), kw = k5_inputs
+    if scale.numel() > 1:
+        # captured from a stacked launch: its first segment's rows
+        n_seg = scale.numel()
+        nq, cap = qq.shape[0] // n_seg, codes.shape[0] // n_seg
+        qq, codes, scale, qids = (qq[:nq].contiguous(), codes[:cap],
+                                  scale[0], qids[:nq].contiguous())
     rec["quantized_query"] = _k5_record(qq, codes, scale, qids, kq, kw)
     rec["quantized_query@32"] = _k5_record(
         qq[:32].contiguous(), codes, scale, qids[:32].contiguous(), kq, kw)
+    # and tiled over STACK_SEGMENTS segments, one scale each
+    for rows in (32, 128):
+        qs, cs, ids, ss = _stacked(qq[:rows], codes,
+                                   qids[:rows].contiguous(), STACK_SEGMENTS,
+                                   scale)
+        rec[f"quantized_query@{rows * STACK_SEGMENTS}"] = _k5_record(
+            qs, cs, ss, ids, kq, kw, big=True)
 
     # K6 at the survivor rescore of that 128-row batch: (128, 40, 64)
     (rq, rrows, rgids, _), rkw = k6_inputs
@@ -1267,20 +1447,24 @@ def profile_batches(sv, n_batches=2, rows=32):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import sample_fvals
     rng = np.random.default_rng(5)
     q = sv.embed(sample_fvals(rng, sv.nodes(), rows)).cpu().numpy()
     sv.index.query(q, 10, 4)[0].cpu()
     # the int8 tier's host survivor gather, timed on the host clock
-    gather_s = []
+    gather_s, gather_in = [], []
     real_gather = sv.index._survivor_rows
 
     def timed_gather(g_np):
+        gather_in.append(g_np.copy())
         t = time.perf_counter()
         out = real_gather(g_np)
         gather_s.append(time.perf_counter() - t)
         return out
     sv.index._survivor_rows = timed_gather
+    torch.cuda.synchronize()
+    before = dict(dispatch.launches)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1290,6 +1474,17 @@ def profile_batches(sv, n_batches=2, rows=32):
             wall = (time.perf_counter() - t0) / n_batches
     finally:
         del sv.index._survivor_rows
+    launches = {k: (dispatch.launches[k] - before[k]) / n_batches
+                for k in ("hash_mm", "fused_query", "quantized_query",
+                          "merge", "rerank")}
+    # the gather again on the last batch's survivors, profiler off: the
+    # median of 20 calls
+    unprofiled = []
+    for _ in range(20 if gather_in else 0):
+        g_np = gather_in[-1].copy()
+        t = time.perf_counter()
+        real_gather(g_np)
+        unprofiled.append(time.perf_counter() - t)
     path = ROOT / "build" / "main_batch_trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
@@ -1328,8 +1523,13 @@ def profile_batches(sv, n_batches=2, rows=32):
            "wall_ms": wall * 1e3,
            "kernel_ms": busy_us / 1e3 if kern else "not measured",
            "kernels_per_batch": len(kern) / n_batches,
+           "launches_per_batch": launches,
+           "stack": (sv.index.layout() if hasattr(sv.index, "layout")
+                     else None),
            "survivor_gather_ms_per_batch": (sum(gather_s) * 1e3 / n_batches
                                             if gather_s else None),
+           "survivor_gather_ms_unprofiled": (
+               statistics.median(unprofiled) * 1e3 if unprofiled else None),
            "busy_share": busy_us / 1e6 / wall if kern else "not measured",
            "scorer_ms_per_batch": scorer,
            "hash_dct_ms_per_batch": gemms,
@@ -1404,6 +1604,42 @@ def compare_tiers(sv32, sv8, report, report8, n_probe=64, k=10):
         raise AssertionError(f"int8 recall@10 vs fp32 {recall:.4f} < 0.98")
 
 
+def stacked_parity(sv, prof, tier, n_probe=64):
+    """The stacked query (``SegmentedIndex.query``) against the per-segment
+    fan-out (``_query_fanout``) on the filled index, bit for bit (gids and
+    distance bits): ``n_probe`` fresh probe functions as two 32-row
+    batches, and one 128-row batch of those and ``n_probe`` more.  Then
+    the profile's launches: K1 once a batch, K2 + K5 at most twice.  A
+    checkout without the stacked engine (an earlier commit) skips both."""
+    from repro_torch.launch.serve import sample_fvals
+    idx = sv.index
+    if not hasattr(idx, "_query_fanout"):
+        log(f"  stacked parity ({tier}): no stacked engine in this checkout")
+        return
+    rng = np.random.default_rng(31)
+    probes = sv.embed(sample_fvals(rng, sv.nodes(), 2 * n_probe)).cpu()
+    probes = probes.numpy()
+    for rows, b in ((32, probes[:32]), (32, probes[32:n_probe]),
+                    (128, probes[:128])):
+        g, d = idx.query(b, 10, 4)
+        gf, df = idx._query_fanout(b, 10, 4)
+        if not (np.array_equal(g.cpu().numpy(), gf.cpu().numpy())
+                and np.array_equal(d.cpu().numpy().view(np.int32),
+                                   df.cpu().numpy().view(np.int32))):
+            raise AssertionError(f"stacked parity ({tier}, {rows} rows): "
+                                 "the stacked query differs from the "
+                                 "per-segment fan-out")
+    per = prof["launches_per_batch"]
+    if per["hash_mm"] != 1 or per["fused_query"] + per[
+            "quantized_query"] > 2:
+        raise AssertionError(f"stacked engine ({tier}): launches per batch "
+                             f"{per}")
+    log(f"  stacked parity ({tier}, {len(idx.segments)} segments): "
+        f"{n_probe} probes in 32-row batches and {2 * n_probe} in a 128-row "
+        "batch, gids and distance bits equal to the per-segment fan-out; "
+        f"launches per profiled batch {per}")
+
+
 def simhash_path(sv, batch=SIMHASH_BATCH, bits_=SIMHASH_BITS):
     """``SimHash.__call__`` (the family bench_hash_throughput hashes with),
     drawn on the card from seed 7, over every live item of the tenant in
@@ -1447,6 +1683,7 @@ def run_paths(card, smi):
         card, smi, FP32_PATH, "main path")
     prof = profile_batches(registry.get("l2-basis"))
     check_report(report, "fp32")
+    stacked_parity(registry.get("l2-basis"), prof, "fp32")
 
     log(f"[7/7] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
@@ -1457,6 +1694,7 @@ def run_paths(card, smi):
         precision="int8", log=log), card, smi, INT8_PATH, "int8 path")
     prof8 = profile_batches(reg8.get("l2-basis"))
     check_report(report8, "int8")
+    stacked_parity(reg8.get("l2-basis"), prof8, "int8")
     compare_tiers(registry.get("l2-basis"), reg8.get("l2-basis"), report,
                   report8)
     counts7, _ = drive(lambda: simhash_path(reg8.get("l2-basis")), card, smi,
@@ -1531,9 +1769,12 @@ def main(argv=None) -> int:
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes; dct_mm "
         "rtol 1e-5 atol 1e-5, bit-equal across batch sizes; "
         "fused_query distances rtol 1e-5 atol 1e-6 and ids equal at "
-        "distinct distances; merge bit-identical (the select route writes "
-        "a -0.0 as +0.0); quantized_query int8 at p in {1, 2} "
-        "bit-identical, else as fused_query; rerank rtol 1e-5 atol 1e-6; "
+        "distinct distances; merge bit-identical (signs of zero included, "
+        "as values only where a row pairs one id with both signs); "
+        "quantized_query int8 at p in {1, 2} bit-identical, else as "
+        "fused_query, and with one scale per segment of a stacked launch; "
+        "each stacked launch's segments bit-equal to their own launches; "
+        "rerank rtol 1e-5 atol 1e-6; "
         "simhash_pack bits equal where |proj| >= 1e-5 and bit-identical to "
         "its fmaf chain")
     errs = {}
@@ -1610,6 +1851,11 @@ def main(argv=None) -> int:
         for dt in (torch.float32, i8, bf):
             check_query_ties(gen, nq, dt)
     check_query_ties_seeds()
+    # the stacked launches draw from their own generator, so the checks
+    # before them keep their inputs
+    for name, err in check_stacked_scorers(
+            torch.Generator().manual_seed(17)).items():
+        errs[name] = max(errs[name], err)
     errs["rerank"] = check_rerank(gen, 128, 40)
     check_rerank(gen, 128, 40, p=1.0)
     check_rerank(gen, 9, 200, n=100, p=1.5)
@@ -1640,7 +1886,8 @@ def main(argv=None) -> int:
 
     kernels = []
     for name in dispatch.KERNELS:
-        t = rec[name]
+        # K2 and K5 at the stacked launch of a 32-row batch
+        t = rec.get(f"{name}@{32 * STACK_SEGMENTS}", rec[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",

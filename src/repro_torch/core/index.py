@@ -212,61 +212,101 @@ def _dedup_candidates(cands: torch.Tensor, buckets: torch.Tensor,
                       cfg: IndexConfig, n_cap: int) -> torch.Tensor:
     """Mark duplicate candidate ids -1, first occurrence kept.
 
+    ``cands`` (..., nq, C) are the (nq, C) candidate rows of one segment,
+    or of a stack of segments on the leading axis; ``buckets`` (nq, L, T)
+    are shared by every segment, and each (segment, query) row is deduped
+    exactly as its own segment's call would.
+
     1. Bucket-local: within a table an item sits in one bucket, so a
        repeat can only come from probing one bucket twice -- kill repeated
        (L, T) buckets whole.
-    2. Cross-table: scatter-min each id's slot position into a (nq, n_cap)
-       first-seen table and keep a slot iff it came first; above
-       ``DEDUP_SCATTER_MAX_ELEMS`` sort instead (the sorted ids, repeats
-       set to -1).
+    2. Cross-table: scatter-min each id's slot position into a (rows,
+       n_cap) first-seen table and keep a slot iff it came first; where
+       one segment's table would pass ``DEDUP_SCATTER_MAX_ELEMS`` (nq *
+       n_cap, whatever the number of segments, so that the route does not
+       change with the segment count) sort instead (the sorted ids,
+       repeats set to -1).
     """
-    nq, c = cands.shape
+    *lead, nq, c = cands.shape
     t = buckets.shape[-1]
     dup_b = buckets[..., :, None] == buckets[..., None, :]          # (nq,L,T,T)
     earlier = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                     device=cands.device), diagonal=-1)
     dup_b = (dup_b & earlier).any(dim=-1)                           # (nq, L, T)
     cands = torch.where(dup_b[..., None], -1,
-                        cands.reshape(nq, cfg.n_tables, t,
-                                      cfg.bucket_capacity)).reshape(nq, c)
+                        cands.reshape(*lead, nq, cfg.n_tables, t,
+                                      cfg.bucket_capacity)
+                        ).reshape(*lead, nq, c)
 
     if nq * n_cap > DEDUP_SCATTER_MAX_ELEMS:
         cs = torch.sort(cands, dim=-1).values
         dup = torch.zeros_like(cs, dtype=torch.bool)
-        dup[:, 1:] = cs[:, 1:] == cs[:, :-1]
+        dup[..., 1:] = cs[..., 1:] == cs[..., :-1]
         return torch.where(dup, -1, cs)
 
-    pos = torch.arange(c, device=cands.device).expand(nq, c)
+    shape = cands.shape
+    cands = cands.reshape(-1, c)
+    rows = cands.shape[0]
+    pos = torch.arange(c, device=cands.device).expand(rows, c)
     # -1 slots scatter into a spare last column that is never read
     scat = torch.where(cands >= 0, cands.to(torch.int64), n_cap).clamp(
         max=n_cap)
-    first = torch.full((nq, n_cap + 1), c, dtype=torch.int64,
+    first = torch.full((rows, n_cap + 1), c, dtype=torch.int64,
                        device=cands.device)
     first.scatter_reduce_(1, scat, pos, reduce="amin", include_self=True)
     seen_at = torch.gather(first, 1, cands.clamp(0, n_cap - 1).to(torch.int64))
     keep = (cands >= 0) & (seen_at == pos)
-    return torch.where(keep, cands, -1)
+    return torch.where(keep, cands, -1).reshape(shape)
 
 
 def _live_filter(cands: torch.Tensor, live_mask: torch.Tensor
                  ) -> torch.Tensor:
-    safe = cands.clamp(0, live_mask.shape[0] - 1).to(torch.int64)
-    return torch.where((cands >= 0) & live_mask[safe], cands, -1)
+    """-1 where a candidate is tombstoned: ``live_mask`` (cap,) for (nq, C)
+    candidates, or (n_seg, cap) for a stack's (n_seg, nq, C)."""
+    safe = cands.clamp(0, live_mask.shape[-1] - 1).to(torch.int64)
+    if live_mask.dim() == 1:
+        alive = live_mask[safe]
+    else:
+        alive = torch.gather(live_mask, 1, safe.flatten(1)).view_as(safe)
+    return torch.where((cands >= 0) & alive, cands, -1)
 
 
 def gather_stage(table: torch.Tensor, buckets: torch.Tensor,
                  cfg: IndexConfig, n_cap: int,
                  live_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gather probed bucket slots + dedup (+ tombstone filter):
-    (nq, L*T*S) int32 candidate ids, -1 = empty/duplicate/dead."""
+    """Gather probed bucket slots + dedup (+ tombstone filter): (nq, L*T*S)
+    int32 candidate ids, -1 = empty/duplicate/dead.
+
+    ``table`` (L, B, S) is one segment's; a stack of segments' tables
+    (n_seg, L, B, S), with ``live_mask`` (n_seg, cap), gives (n_seg, nq,
+    L*T*S) local slots from buckets computed once, each segment's rows
+    equal to its own call's."""
     nq = buckets.shape[0]
     tables = torch.arange(cfg.n_tables, device=table.device)[:, None, None]
-    cands = table[tables, buckets.permute(1, 0, 2)]                 # (L, nq, T, S)
-    cands = cands.permute(1, 0, 2, 3).reshape(nq, -1)
+    bk = buckets.permute(1, 0, 2)                               # (L, nq, T)
+    if table.dim() == 4:                                  # (n, L, nq, T, S)
+        segs = torch.arange(table.shape[0], device=table.device)
+        cands = table[segs[:, None, None, None], tables, bk]
+    else:                                                    # (L, nq, T, S)
+        cands = table[tables, bk]
+    cands = cands.transpose(-4, -3).reshape(*table.shape[:-3], nq, -1)
     cands = _dedup_candidates(cands, buckets, cfg, n_cap)
     if live_mask is not None:
         cands = _live_filter(cands, live_mask)
     return cands
+
+
+def flat_rows(cands: torch.Tensor, capacity: int) -> torch.Tensor:
+    """A stack's (n_seg, nq, C) local slots -> (n_seg * nq, C) int32 rows
+    of its ``db`` viewed as (n_seg * capacity, N): slot ``j`` of segment
+    ``s`` is row ``s * capacity + j``, -1 stays.  The offset is the same
+    for every slot of a segment, so each row's (distance, id) order is its
+    segment's own."""
+    n_seg = cands.shape[0]
+    base = (torch.arange(n_seg, device=cands.device, dtype=torch.int32)
+            * capacity)[:, None, None]
+    return torch.where(cands >= 0, cands + base, -1).reshape(
+        -1, cands.shape[-1]).to(torch.int32).contiguous()
 
 
 def _candidate_ids(state: LSHIndexState, cfg: IndexConfig, q: torch.Tensor,

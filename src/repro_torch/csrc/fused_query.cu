@@ -3,7 +3,8 @@
 //
 // Replaces: src/repro/kernels/fused_query.py, _fused_query_kernel (the
 // pallas_call at line 131, reached through ops.fused_query_topk from
-// core.index.query_index, once per segment per query micro-batch).
+// core.distributed.query_segments_stacked, once over every sealed segment
+// of a query micro-batch and once over the delta).
 //
 // Bound on the H100: bytes.  Per call, the queries (nq x N x 4), the ids
 // (nq x C x 4), each distinct valid row once (N x 4 = 256 B at N = 64) and
@@ -36,9 +37,9 @@ REPRO_EXPORT int fused_query_launch(const float* q, const float* db,
                                     int vec, float* out_d, int* out_i,
                                     void* stream) {
   namespace topk = repro_torch::topk;
-  const topk::Args a{q,       db,      nullptr, ids,   n,          c,
-                     k,       valid,   pmode,   p,     cluster,    slots,
-                     lanes_log2, out_d, out_i};
+  const topk::Args a{q,     db,    nullptr, 1,       ids,   n,
+                     c,     k,     valid,   pmode,   p,     cluster,
+                     slots, lanes_log2, out_d, out_i};
   return vec ? topk::launch<float, true>(a, nq, stream)
              : topk::launch<float, false>(a, nq, stream);
 }

@@ -18,14 +18,16 @@
 //    sign bit set), the low word id ^ 0x80000000 (so -1 < 0 < INT32_MAX).
 //    Negation sends -0.0 to +0.0's word: the network calls the two equal
 //    and orders them by id, and so does the key, at no cost over a bitwise
-//    not.  On NaN-free pairs decoding a key gives back the pair's bits, so
-//    the output is bit-identical to the network's first n_out columns, but
-//    for the sign of zero: a -0.0 distance comes out as +0.0.  It cannot be
-//    kept: the network leaves pairs that are equal in its order (say (-0.0,
-//    5) and (+0.0, 5)) where its compare pattern puts them, which no
-//    selection reproduces.  The path's distances are sums of non-negative
-//    terms from +0.0, and masked slots +inf, so they never hold -0.0 and
-//    the path's outputs are the network's bit for bit.
+//    not.  On NaN-free pairs decoding a key gives back the pair's bits, but
+//    for the sign of zero, which the block that writes a row's outputs
+//    restores when a merged list may hold a zero (restore_negative_zeros:
+//    each picked (0, id) takes the sign of the row's pair of that id).  So
+//    the output is bit-identical to the network's first n_out columns
+//    wherever no id of a row is paired with both -0.0 and +0.0.  That one
+//    case cannot be reproduced: the network leaves such equal pairs (say
+//    (-0.0, 5) and (+0.0, 5)) where its compare pattern puts them, which no
+//    selection does.  The path's distances are sums of non-negative terms
+//    from +0.0, and masked slots +inf, so they never hold -0.0.
 //
 //    Design.  A row is split over a cluster of G <= 4 blocks (the plan in
 //    kernels/merge.py: one wave of at most 264 blocks), rank r owning the
@@ -166,6 +168,8 @@ struct Scratch {
   int n;                            // keys in the pool
   int na, nb;                       // lengths of the placement lists
   int counts[kMaxCluster];          // rank 0: each rank's list length
+  int zero;                         // rank 0: a rank's list may hold a
+                                    // zero distance
 };
 
 struct SelectArgs {
@@ -195,6 +199,47 @@ __device__ __forceinline__ void emit(const SelectArgs& a, size_t at,
   const int id = static_cast<int>(static_cast<unsigned>(key) ^ 0x80000000u);
   a.out_d[at] = d;
   a.out_i[at] = (a.mask_invalid && isinf(d)) ? -1 : id;
+}
+
+// True when a sorted list whose smallest key is `smallest` may hold a zero
+// distance (its word is at most +-0.0's).  On the path, whose distances
+// are sums of non-negative terms from +0.0, only an exact match does.
+__device__ __forceinline__ bool may_hold_zero(unsigned long long smallest) {
+  return static_cast<unsigned>(smallest >> 32) <= 0x80000000u;
+}
+
+// The key sends -0.0 to +0.0's word, so emit wrote every zero distance as
+// +0.0.  Give each back its own pair's sign: after a barrier (every output
+// of the row written), a thread per pair of the row that holds -0.0 (with
+// a valid id, under mask_invalid) writes -0.0 into every output slot of
+// the row holding (0, that id).  Run by the block that wrote the row, and
+// only when a list it merged may hold a zero (a branch uniform over the
+// block, so a row without one pays no barrier).  The row is read through
+// the non-coherent cache, as at load (coherent loads here slowed the whole
+// kernel; tools/ab_merge.py).  Exact wherever an id is not paired with both
+// -0.0 and +0.0 in one row; where it is, the network leaves the two equal
+// pairs where its compare pattern puts them, which no selection
+// reproduces, and each picked zero of that id is written -0.0.
+__device__ void restore_negative_zeros(const SelectArgs& a, long long row0,
+                                       size_t out0) {
+  __syncthreads();
+  for (int j = threadIdx.x; j < a.m; j += kThreads) {
+    if (__float_as_uint(__ldg(a.d + row0 + j)) != 0x80000000u) continue;
+    const int id = __ldg(a.ids + row0 + j);
+    if (a.mask_invalid && id < 0) continue;
+    for (int t = 0; t < a.n_out; ++t) {
+      if (a.out_i[out0 + t] == id && a.out_d[out0 + t] == 0.0f) {
+        a.out_d[out0 + t] = -0.0f;
+      }
+    }
+  }
+}
+
+// The split cluster barrier's arrive with release semantics (PTX's
+// default), where topk::cluster_arrive is relaxed: rank 0's zeroed
+// s.zero, written before it, is visible to every rank once it has waited.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
 
 // Append the keys of this lane whose bit is set in `keep` to list[] at a
@@ -491,7 +536,10 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
   const int tid = threadIdx.x;
   const int row = blockIdx.x / a.cluster;
   const int rank = blockIdx.x % a.cluster;
-  if (a.cluster > 1) topk::cluster_arrive();   // waited for before the push
+  if (a.cluster > 1) {               // waited for before the push
+    if (tid == 0) s.zero = 0;
+    cluster_arrive_release();
+  }
   // Programmatic dependent launch: wait for the kernels before this one
   // (their writes to d and ids visible), then let the next one launch.
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -551,6 +599,7 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
   const size_t out0 = static_cast<size_t>(row) * a.n_out;
   if (a.cluster == 1) {
     for (int t = tid; t < a.n_out; t += kThreads) emit(a, out0 + t, win[t]);
+    if (may_hold_zero(win[0])) restore_negative_zeros(a, row0, out0);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -559,7 +608,12 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
   unsigned long long* dst =
       cluster.map_shared_rank(lists, 0) + static_cast<size_t>(rank) * kMaxK;
   for (int t = tid; t < nb; t += kThreads) dst[t] = win[t];
-  if (tid == 0) *cluster.map_shared_rank(&s.counts[rank], 0) = nb;
+  if (tid == 0) {
+    *cluster.map_shared_rank(&s.counts[rank], 0) = nb;
+    if (nb && may_hold_zero(win[0])) {
+      atomicOr(cluster.map_shared_rank(&s.zero, 0), 1);
+    }
+  }
   cluster.sync();                    // every rank's list is in rank 0's
   if (rank != 0) return;
   // Rank 0 merges the G sorted lists: the place of entry i of list r is i
@@ -567,6 +621,7 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
   // the keys < it (binary searches); equal keys go in rank order.
   int total = 0;
   for (int r = 0; r < a.cluster; ++r) total += s.counts[r];
+  const bool zero = s.zero;          // read beside the counts
   for (int e = tid; e < total; e += kThreads) {
     int r = 0, i = e;
     while (i >= s.counts[r]) i -= s.counts[r++];
@@ -588,6 +643,7 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const SelectArgs a) {
     }
     if (place < a.n_out) emit(a, out0 + place, key);
   }
+  if (zero) restore_negative_zeros(a, row0, out0);
 }
 
 template <bool kVec, int kLoadUnroll>

@@ -4,8 +4,9 @@
 //
 // Replaces: src/repro/kernels/quantize.py, _quantized_query_kernel (the
 // quantized_query_topk pallas_call at line 228, reached through
-// ops.quantized_query_topk from core.index.query_index_quantized once per
-// sealed int8/bf16 segment per query micro-batch).
+// ops.quantized_query_topk from core.distributed.query_segments_stacked
+// once per query micro-batch, over the rows of every sealed int8/bf16
+// segment, each block reading its own segment's scale).
 //
 // Bound on the H100: bytes.  Per call, the queries (nq x N x 4), the ids
 // (nq x C x 4), each distinct valid code row once (64 B int8 / 128 B bf16
@@ -34,21 +35,24 @@
 REPRO_DEFINE_ERROR_STRING(quantized_query)
 
 // q: (nq, n) fp32; codes: (m, n) int8 (is_int8 = 1) or bf16 (is_int8 = 0);
-// scale: one fp32 on the device; ids: (nq, c) int32; outputs (nq, k)
-// distances (scaled) and ids.  pmode 2 / 1 select the p = 2 / p = 1 forms,
-// 0 the general power p.  cluster (G), slots (S), lanes_log2 and vec come
-// from the wrapper's plan.
+// scale: fp32 on the device, row r reading scale[r / rows_per_scale] (one
+// scale with rows_per_scale = nq; one per segment of a stacked launch with
+// rows_per_scale = the batch's query rows); ids: (nq, c) int32; outputs
+// (nq, k) distances (scaled) and ids.  pmode 2 / 1 select the p = 2 / p = 1
+// forms, 0 the general power p.  cluster (G), slots (S), lanes_log2 and vec
+// come from the wrapper's plan.
 REPRO_EXPORT int quantized_query_launch(const float* q, const void* codes,
                                         int is_int8, const float* scale,
-                                        const int* ids, int nq, int n, int c,
-                                        int k, int valid, int pmode, float p,
+                                        int rows_per_scale, const int* ids,
+                                        int nq, int n, int c, int k,
+                                        int valid, int pmode, float p,
                                         int cluster, int slots,
                                         int lanes_log2, int vec, float* out_d,
                                         int* out_i, void* stream) {
   namespace topk = repro_torch::topk;
-  const topk::Args a{q,       codes,   scale,   ids,   n,          c,
-                     k,       valid,   pmode,   p,     cluster,    slots,
-                     lanes_log2, out_d, out_i};
+  const topk::Args a{q,     codes, scale, rows_per_scale, ids,   n,
+                     c,     k,     valid, pmode,          p,     cluster,
+                     slots, lanes_log2, out_d, out_i};
   if (is_int8) {
     return vec ? topk::launch<int8_t, true>(a, nq, stream)
                : topk::launch<int8_t, false>(a, nq, stream);

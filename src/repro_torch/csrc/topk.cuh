@@ -299,7 +299,9 @@ __device__ __forceinline__ void emit(unsigned long long key, int id,
 struct Args {
   const float* q;          // (nq, n) fp32 queries
   const void* rows;        // (m, n) rows of type T
-  const float* scale;      // int8: one fp32 on the device; else unused
+  const float* scale;      // int8: fp32 scales on the device, one per
+                           // rows_per_scale rows; else unused
+  int rows_per_scale;      // row r reads scale[r / rows_per_scale]
   const int* ids;          // (nq, c) candidate ids
   int n, c, k, valid, pmode;
   float p;
@@ -436,7 +438,8 @@ __global__ void __launch_bounds__(kThreads) row_topk_kernel(const Args a) {
   // bucket's first slots, so interleaving spreads the valid ones evenly
   const int nslots = (a.c - rank + a.cluster - 1) / a.cluster;
   const int* rid = a.ids + static_cast<size_t>(row) * a.c;
-  const float qs = kInt8 ? *a.scale : 1.0f;
+  // the row's segment's scale: one launch scores a stack of segments
+  const float qs = kInt8 ? a.scale[row / a.rows_per_scale] : 1.0f;
   if (a.cluster > 1) cluster_arrive();   // waited for before the push
 
   for (int j = tid; j < a.n; j += kThreads) {

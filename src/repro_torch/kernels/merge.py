@@ -8,10 +8,11 @@ the shapes alone:
   ``ops.merge_topk``): a top-k selection split over a thread-block
   cluster, with no cap on the pool (:func:`plan`).  Its inputs must hold
   no NaN.  It orders ``-0.0`` as ``+0.0``, ties broken by id, as the
-  network does, and writes such a distance as ``+0.0``: the network keeps
-  the sign, but places pairs that are equal in its order (``(-0.0, 5)``
-  and ``(+0.0, 5)``) by its own compare pattern, which no selection
-  reproduces.  The path's distances are sums of non-negative terms and
+  network does, and writes each picked zero with its own pair's sign --
+  but where a row pairs one id with both ``-0.0`` and ``+0.0``: the
+  network places such equal pairs by its own compare pattern, which no
+  selection reproduces, and the kernel writes that id's zeros as
+  ``-0.0``.  The path's distances are sums of non-negative terms and
   never ``-0.0``.
 - ``"network"`` (the full sort, or ``sorted_run > 1``): the bitonic network
   the TPU kernel runs, one block a row, the pool in shared memory, so at
@@ -19,8 +20,8 @@ the shapes alone:
 
 Both are bit-identical to the plain network,
 :func:`repro_torch.kernels.ref.sort_pairs` (re-exported here with
-``_network``), on the inputs they take, the select route up to the sign
-of a zero distance.  Neither falls back to the other.
+``_network``), on the inputs they take, the select route but for that
+one case of signed zeros.  Neither falls back to the other.
 """
 
 from __future__ import annotations

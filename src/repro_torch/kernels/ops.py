@@ -62,7 +62,9 @@ def fused_query_topk(q, db, ids, k: int, p: float = 2.0, valid_items=None):
 def quantized_query_topk(q, codes, scale, ids, k: int, p: float = 2.0,
                          valid_items=None):
     """:func:`fused_query_topk` over a quantized segment: codes (M, N) int8
-    or bf16 with one dequant ``scale`` () f32.  The queries are mapped into
+    or bf16 with one dequant ``scale`` () f32 -- or over a stack of S
+    segments, ``scale`` (S,) f32 and q's rows in S equal blocks, block s
+    read against ``scale[s]``.  The queries are mapped into
     code space, candidates scored there with each code widened in
     registers, and the k distances scaled into the fp32 metric (approximate
     within O(scale); the serve layer rescores survivors exactly).  On the
@@ -116,8 +118,11 @@ def merge_topk(dists, ids, k: int):
     the card that is one launch of K3's select route (the masking of
     empty slots inside it) when k <= 128, after the padding when M < k.
     ``-0.0`` and ``+0.0`` are equal in that order (ties by id) on both
-    devices; the card's select route writes either as ``+0.0``, the CPU
-    keeps the input's sign."""
+    devices, and both write each picked pair's own sign -- but for one
+    case no selection reproduces: where a row pairs one id with both
+    ``-0.0`` and ``+0.0``, the CPU's network keeps the two equal pairs
+    where its compare pattern puts them, and the card writes that id's
+    zeros as ``-0.0``."""
     dists, ids = _pad_to_k(dists, ids, k)
     if dispatch.use_kernel(dists):
         return merge_topk_kernel(dists.contiguous(),

@@ -72,13 +72,24 @@ def fused_query_topk_ref(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
 # -- K5 quantized_query ------------------------------------------------------
 
 
+def _row_scale(scale: torch.Tensor, nq: int) -> torch.Tensor:
+    """One dequant scale () as it is, or S per-segment scales (S,) as the
+    (nq, 1) column each of S equal blocks of nq / S rows reads."""
+    if scale.numel() == 1:
+        return scale.reshape(())
+    return scale.reshape(-1).repeat_interleave(nq // scale.numel())[:, None]
+
+
 def code_query(q: torch.Tensor, codes_dtype: torch.dtype, scale: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Map fp32 queries into a segment's code space: (q_c, post_scale).
     int8: ``round(q / scale)`` (true division, round half to even); bf16:
-    the queries as they are, post-scale 1."""
+    the queries as they are, post-scale 1.  ``scale`` is one f32, or (S,)
+    f32 for S equal blocks of q's rows (row r reads ``scale[r // (nq /
+    S)]``)."""
     if codes_dtype == torch.int8:
-        return torch.round(q / scale), scale
+        s = _row_scale(scale, q.shape[0])
+        return torch.round(q / s), s
     return q, torch.ones((), dtype=torch.float32, device=q.device)
 
 
@@ -87,7 +98,9 @@ def quantized_topk_ref(q: torch.Tensor, codes: torch.Tensor,
                        p: float = 2.0, valid_items=None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather int8/bf16 candidate rows, score them in code space, top-k,
-    then scale the k distances into the fp32 metric.
+    then scale the k distances into the fp32 metric.  ``scale`` is one f32
+    or one per block of rows (:func:`code_query`): the stacked query's S
+    segments, each row of block s read against its segment's scale.
 
     The JAX oracle (``repro/kernels/quantize.py:110``) scales before its
     top-k, the Pallas kernel after; this follows the kernel, which selects

@@ -1,44 +1,58 @@
 """Segmented mutable LSH index: the streaming lifecycle over core.index.
 
-The port of ``repro/serve/segments.py``, unsharded:
+The port of ``repro/serve/segments.py`` on one device:
 
 * one mutable **delta** segment absorbs inserts through ``insert_items`` in
   fixed ``insert_chunk``-row padded chunks;
 * when the delta reaches ``segment_capacity`` it is **sealed** and a fresh
   delta opens (incremental inserts keep every table valid, so sealing is
-  free);
-* **deletes** are tombstones in a per-segment live mask read at query time;
-* **query** fans out one ``query_index_gids`` per non-empty segment -- each
-  re-hashes the batch, as the JAX package's per-segment program does -- and
-  merges the per-segment top-k through ``ops.merge_topk`` (K3 on the card);
+  free); a seal copies the segment into a slot of the **stack**
+  (``repro_torch.sharding.placement.SegmentStack``: one tensor per leaf
+  over every sealed segment, grown by capacity doubling), and the sealed
+  segment's tensors become views of that slot;
+* **deletes** are tombstones in a per-segment live mask read at query time
+  (through the views, in the stack);
+* **query** runs ``core.distributed.query_segments_stacked``: the batch is
+  hashed and probed once (one K1 launch), one gather covers the stacked
+  tables, one K2 launch scores every sealed segment and one more the
+  delta, and one ``ops.merge_topk`` (K3) takes the top k -- a number of
+  kernels that does not grow with the segment count.  Its answer is, bit
+  for bit, that of the per-segment fan-out the JAX package's unsharded
+  path runs (one ``query_index_gids`` a segment, each re-hashing the
+  batch, merged by K3), which stays here as ``_query_fanout`` for the
+  tests and the chip smoke's parity phase to hold it against;
 * the **precision tier** (``precision="bf16"`` or ``"int8"``): a seal
-  encodes the delta's rows into codes + one dequant scale and moves the
-  exact fp32 rows to a host-side survivor pool.  A query scores each sealed
-  segment in code space (K5) for its top ``m`` survivors, merges them
-  (K3), gathers their fp32 rows from the pools and rescores them exactly
-  (K6 + K3).  The delta stays fp32, and an fp32 tenant builds no codes,
-  scales or pools (invariant 10).
+  encodes the delta's rows into codes + one dequant scale, stacked, and
+  moves the exact fp32 rows to the stack's host-side survivor pool.  A
+  query scores every sealed segment in code space in one K5 launch (each
+  segment's rows against its own scale) for its top ``m`` survivors,
+  merges them (K3), gathers their fp32 rows from the pool and rescores
+  them exactly (K6 + K3).  The delta stays fp32, and an fp32 tenant
+  builds no codes, scales or pools (invariant 10).
 
 Every segment shares ONE hash family, so an item's buckets do not depend
 on which segment holds it, and (with no bucket overflowing) a segmented
 query returns the ids one index over the live items would: segmentation is
 invisible.  Device state per segment is an ``LSHIndexState`` plus a
 (capacity,) gid vector and live mask; the gid -> (segment, slot) locator is
-host-side.
+host-side, and sealed segment ``i`` sits in stack slot ``i``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import distributed
 from ..core import index as lidx
 from ..core.index import IndexConfig, LSHIndexState
 from ..kernels import dispatch, ops, quantize
+from ..sharding.placement import SegmentStack
 
 
 @dataclasses.dataclass
@@ -52,7 +66,8 @@ class Segment:
     n_live: int = 0
     sealed: bool = False
     # Precision tier (sealed bf16/int8 segments only; None on fp32 tenants
-    # and on the delta, which stays fp32 until sealed):
+    # and on the delta, which stays fp32 until sealed; in an index, views
+    # of the stack's slot):
     scale: Optional[torch.Tensor] = None   # () f32 dequant scale
     pool: Optional[np.ndarray] = None      # (capacity, N) f32 survivor pool
 
@@ -71,18 +86,6 @@ class Segment:
                                if self.n_items else 0.0),
             "sealed": self.sealed,
         }
-
-
-def _segment_query_fn(cfg: IndexConfig, k: int, n_probes: int):
-    """The per-segment program: query one segment, translate slots to
-    global ids.  Every segment runs this same body."""
-
-    def f(state: LSHIndexState, q: torch.Tensor, live: torch.Tensor,
-          gids: torch.Tensor):
-        return lidx.query_index_gids(state, cfg, q, k, gids,
-                                     n_probes=n_probes, live_mask=live)
-
-    return f
 
 
 class SegmentedIndex:
@@ -117,6 +120,10 @@ class SegmentedIndex:
                                       cfg)
         self.family = tuple(t.to(self.device) for t in family)
         self.segments: List[Segment] = []
+        # the sealed segments' leaves, slot i = segments[i]
+        self._stack = SegmentStack(cfg, self.segment_capacity,
+                                   quantize.storage_dtype(precision),
+                                   precision != "fp32", self.device)
         self._locator: dict = {}          # gid -> (segment index, slot)
         self._next_gid = 0
         self._lock = threading.RLock()
@@ -155,21 +162,26 @@ class SegmentedIndex:
             self._seal()
 
     def _seal(self) -> None:
-        """Apply a seal (callers hold the lock).
+        """Apply a seal (callers hold the lock): stack the delta and open a
+        fresh one.
 
-        Under a quantized tier this is the encode point, and the encode
-        runs before the sealed flag flips, so a failed encode leaves the
-        delta mutable and untouched.  fp32 tenants never enter it."""
-        if self.delta.n_items == 0:
+        Under a quantized tier this is the encode point, and the encode and
+        the copy into the stack run before the sealed flag flips, so a
+        failed encode leaves the delta mutable and untouched.  fp32 tenants
+        never encode."""
+        seg = self.delta
+        if seg.n_items == 0:
             return
-        if self.precision != "fp32":
-            self._quantize_segment(self.delta)
-        self.delta.sealed = True
+        if self.precision == "fp32":
+            self._stack.seal(seg, seg.state.db)
+        else:
+            self._stack.seal(seg, *self._encode(seg))
+        seg.sealed = True
         self._open_segment()
 
-    def _quantize_segment(self, seg: Segment) -> None:
-        """Encode one about-to-seal segment into the storage tier; its fp32
-        rows move to the host survivor pool."""
+    def _encode(self, seg: Segment):
+        """One about-to-seal segment in the storage tier: (codes, scale,
+        its fp32 rows on the host as the survivor pool)."""
         pool = seg.state.db.cpu().numpy()
         if not np.isfinite(pool).all():
             # insert() already refuses NaN/Inf; a non-finite row would
@@ -178,9 +190,11 @@ class SegmentedIndex:
                 f"segment holds non-finite embeddings; refusing to "
                 f"quantize to {self.precision} at seal")
         codes, scale = quantize.encode(seg.state.db, self.precision)
-        seg.state = dataclasses.replace(seg.state, db=codes)
-        seg.scale = scale
-        seg.pool = pool
+        return codes, scale, pool
+
+    def layout(self) -> dict:
+        """The stack's report: sealed count, slots, bytes."""
+        return self._stack.layout()
 
     def store_bytes_per_item(self) -> Optional[float]:
         """Sealed-store bytes per live sealed item (the tier's capacity
@@ -309,47 +323,40 @@ class SegmentedIndex:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-segment k-NN: (nq, N) -> (gids (nq, k), dists (nq, k)).
 
-        One per-segment query per non-empty segment, merged by
-        ``ops.merge_topk`` (a single segment is merged too, so tie order
-        does not depend on the segment count)."""
-        q = torch.as_tensor(queries, dtype=torch.float32,
-                            device=self.device).contiguous()
+        One stacked query over every segment
+        (``core.distributed.query_segments_stacked``); on a quantized tier
+        its stage 1 (see :meth:`_query_quantized`)."""
+        q = self._queries(queries)
+        if self.n_live == 0:
+            return self._no_results(q.shape[0], k)
         if self.precision != "fp32":
             return self._query_quantized(q, k, n_probes)
         with self._lock:
-            fn = _segment_query_fn(self.cfg, k, n_probes)
-            shards = [fn(s.state, q, s.live, s.gids) for s in self.segments
-                      if s.n_live > 0]
-        if not shards:
-            return self._no_results(q.shape[0], k)
-        g_all = torch.cat([g for g, _ in shards], dim=1)
-        d_all = torch.cat([d for _, d in shards], dim=1)
-        return _merged(d_all, g_all, k)
+            return self._query_stacked(q, k, n_probes)
 
-    def _no_results(self, nq: int, k: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(-1, +inf) for every slot: the answer of an empty index."""
-        return (torch.full((nq, k), -1, dtype=torch.int32,
-                           device=self.device),
-                torch.full((nq, k), torch.inf, device=self.device))
+    def _queries(self, queries) -> torch.Tensor:
+        return torch.as_tensor(queries, dtype=torch.float32,
+                               device=self.device).contiguous()
 
-    def _query_quantized(self, q: torch.Tensor, k: int, n_probes: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Two-stage quantized query: code-space candidate scoring to a
-        survivor pool of ``m >= k`` per segment, then an exact fp32 rescore
-        of the merged survivors.
+    def _query_stacked(self, q: torch.Tensor, k: int, n_probes: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        st = self.delta.state
+        return distributed.query_segments_stacked(
+            self._stack, self.delta, (st.alpha, st.b, st.mix), self.cfg, q,
+            k, n_probes=n_probes)
 
-        Stage 1 runs :meth:`query`'s fan-out at width ``m =
-        survivor_width(k, survivor_k, L * n_probes * S)``: K5 against each
-        sealed segment's codes, K2 (exact) against the fp32 delta, merged
-        by K3.  Stage 2 gathers the survivors' fp32 rows from the host
-        pools and reranks them under the same (distance, gid) order, so any
-        survivor set holding the true top-k yields the fp32 answer."""
-        kq = quantize.survivor_width(
-            k, self.survivor_k,
-            self.cfg.n_tables * n_probes * self.cfg.bucket_capacity)
+    def _query_fanout(self, queries, k: int, n_probes: int = 1
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`query` by the per-segment fan-out, the JAX package's
+        unsharded path: one ``query_index_gids`` per non-empty segment
+        (each re-hashing the batch; K5 on a quantized sealed segment),
+        merged by ``ops.merge_topk`` (a single segment is merged too, so
+        tie order does not depend on the segment count).  The stacked
+        query's reference: it returns the same bits.  Only the tests and
+        the chip smoke's parity phase call it."""
+        q = self._queries(queries)
+        kq = self._survivor_width(k, n_probes)
         with self._lock:
-            exact = _segment_query_fn(self.cfg, kq, n_probes)
             shards = []
             for seg in self.segments:
                 if seg.n_live == 0:
@@ -358,12 +365,55 @@ class SegmentedIndex:
                     shards.append(lidx.query_index_gids_quantized(
                         seg.state, self.cfg, q, kq, seg.gids, seg.scale,
                         n_probes=n_probes, live_mask=seg.live))
-                else:       # the delta (and any segment sealed at fp32)
-                    shards.append(exact(seg.state, q, seg.live, seg.gids))
+                else:
+                    shards.append(lidx.query_index_gids(
+                        seg.state, self.cfg, q, kq, seg.gids,
+                        n_probes=n_probes, live_mask=seg.live))
         if not shards:
             return self._no_results(q.shape[0], k)
-        g, _ = _merged(torch.cat([d for _, d in shards], dim=1),
+        g, d = _merged(torch.cat([d for _, d in shards], dim=1),
                        torch.cat([g for g, _ in shards], dim=1), kq)
+        if self.precision == "fp32":
+            return g, d
+        return self._rescore(q, g, k)
+
+    def _no_results(self, nq: int, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(-1, +inf) for every slot: the answer of an empty index."""
+        return (torch.full((nq, k), -1, dtype=torch.int32,
+                           device=self.device),
+                torch.full((nq, k), torch.inf, device=self.device))
+
+    def _survivor_width(self, k: int, n_probes: int) -> int:
+        """The quantized query's survivor width m (k on an fp32 tenant)."""
+        if self.precision == "fp32":
+            return k
+        return quantize.survivor_width(
+            k, self.survivor_k,
+            self.cfg.n_tables * n_probes * self.cfg.bucket_capacity)
+
+    def _query_quantized(self, q: torch.Tensor, k: int, n_probes: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Two-stage quantized query: code-space candidate scoring to a
+        survivor pool of ``m >= k``, then an exact fp32 rescore of the
+        merged survivors.
+
+        Stage 1 is the stacked query at width ``m = survivor_width(k,
+        survivor_k, L * n_probes * S)``: one K5 launch over every sealed
+        segment's codes, K2 (exact) against the fp32 delta, merged by K3.
+        Stage 2 (:meth:`_rescore`) gathers the survivors' fp32 rows from
+        the host pool and reranks them under the same (distance, gid)
+        order, so any survivor set holding the true top-k yields the fp32
+        answer."""
+        kq = self._survivor_width(k, n_probes)
+        with self._lock:
+            g, _ = self._query_stacked(q, kq, n_probes)
+        return self._rescore(q, g, k)
+
+    def _rescore(self, q: torch.Tensor, g: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage 2 of the quantized query: the (nq, m) survivor gids ``g``
+        rescored exactly from their fp32 rows (K6 + K3)."""
         g_np = g.cpu().numpy().copy()
         rows = self._survivor_rows(g_np)
         g, d = quantize.rerank_survivors(
@@ -376,34 +426,34 @@ class SegmentedIndex:
     def _survivor_rows(self, g_np: np.ndarray) -> np.ndarray:
         """Exact fp32 rows for a (nq, m) survivor-gid matrix.
 
-        Sealed quantized segments serve from their host pools; fp32
-        segments (the delta) copy their device ``db`` to the host once per
-        batch.  Gids the locator does not know are set to -1 in place, so
-        the rerank drops them instead of scoring a zero row."""
+        Rows of sealed quantized segments come from the stack's host pool
+        in one gather; a segment without a pool (the delta) copies its
+        device ``db`` to the host once per batch.  Gids the locator does
+        not know are set to -1 in place, so the rerank drops them instead
+        of scoring a zero row."""
         nq, m = g_np.shape
-        rows = np.zeros((nq, m, self.cfg.n_dims), np.float32)
+        flat = g_np.reshape(-1).copy()
+        rows = np.zeros((nq * m, self.cfg.n_dims), np.float32)
         with self._lock:
-            host_db: dict = {}
-            for qi in range(nq):
-                for j in range(m):
-                    gid = int(g_np[qi, j])
-                    if gid < 0:
-                        continue
-                    loc = self._locator.get(gid)
-                    if loc is None:
-                        g_np[qi, j] = -1
-                        continue
-                    si, slot = loc
-                    seg = self.segments[si]
-                    if seg.pool is not None:
-                        rows[qi, j] = seg.pool[slot]
-                    else:
-                        db = host_db.get(si)
-                        if db is None:
-                            db = seg.state.db.cpu().numpy()
-                            host_db[si] = db
-                        rows[qi, j] = db[slot]
-        return rows
+            at = np.flatnonzero(flat >= 0)
+            uniq, inv = np.unique(flat[at], return_inverse=True)
+            loc = np.fromiter(itertools.chain.from_iterable(map(
+                self._locator.get, uniq.tolist(),
+                itertools.repeat((-1, -1)))), np.int64, 2 * uniq.size)
+            loc = loc.reshape(-1, 2)[inv.reshape(-1)]
+            known = loc[:, 0] >= 0
+            flat[at[~known]] = -1
+            at, si, slot = at[known], loc[known, 0], loc[known, 1]
+            pooled = np.zeros(si.shape, bool)
+            if self._stack.pool is not None:
+                pooled = si < self._stack.n_sealed
+                rows[at[pooled]] = self._stack.pool[si[pooled], slot[pooled]]
+            for s in np.unique(si[~pooled]).tolist():
+                own = ~pooled & (si == s)
+                rows[at[own]] = self.segments[s].state.db.cpu().numpy()[
+                    slot[own]]
+        g_np[...] = flat.reshape(nq, m)
+        return rows.reshape(nq, m, self.cfg.n_dims)
 
     def occupancy(self) -> List[dict]:
         return [s.occupancy() for s in self.segments]

@@ -10,10 +10,11 @@ need not have.)
 
 Tolerances as in ``chip_smoke.py``: projections allclose and hashes equal
 away from a bucket boundary, embeddings allclose, top-k distances allclose
-with ids equal where distances are distinct, the merge bit-identical (the
-select route writes a -0.0 as +0.0), the int8 quantized query
-bit-identical (its sums are exact integers), bf16 tied distances rtol 1e-5
-(K5's contract), simhash bits equal away from |x @ A| < 1e-5 and
+with ids equal where distances are distinct, the merge bit-identical
+(signs of zero included, but where a row pairs one id with both), the int8
+quantized query bit-identical (its sums are exact integers), bf16 tied
+distances rtol 1e-5 (K5's contract), the stacked query bit-identical to
+the per-segment fan-out, simhash bits equal away from |x @ A| < 1e-5 and
 bit-identical to the kernel's fmaf chain.
 """
 
@@ -252,9 +253,25 @@ def test_merge_topk_answers_a_100000_pair_row(gen):
         _assert_pairs(ops.merge_topk(dc, ic, k), _merge_plain(dc, ic, k))
 
 
-def _positive_zero(d):
-    """A -0.0 written as +0.0: what K3's select route returns for it."""
-    return torch.where(d == 0, torch.zeros_like(d), d)
+def _mixed_zero_slots(d, i, out_d, out_i):
+    """Output slots holding a zero distance whose id the row pairs with
+    both -0.0 and +0.0: the one case no selection reproduces (the network
+    leaves such equal pairs where its compare pattern puts them)."""
+    neg = (d == 0) & torch.signbit(d)
+    pos = (d == 0) & ~torch.signbit(d)
+    same = out_i[:, :, None] == i[:, None, :]
+    mixed = (same & neg[:, None, :]).any(-1) & (same & pos[:, None, :]).any(-1)
+    return mixed & (out_d == 0)
+
+
+def _assert_pairs_signed(got, want, d, i):
+    """``_assert_pairs``, but at the slots of ``_mixed_zero_slots`` the
+    distances are compared as values."""
+    assert torch.equal(got[1], want[1])
+    exempt = _mixed_zero_slots(d, i, want[0], want[1])
+    gd, wd = got[0].view(torch.int32), want[0].view(torch.int32)
+    assert torch.equal(gd[~exempt], wd[~exempt])
+    assert torch.equal(got[0][exempt], want[0][exempt])
 
 
 @pytest.mark.parametrize("rows,m,n_out", [(32, 2570, 10), (128, 10320, 40),
@@ -263,8 +280,8 @@ def _positive_zero(d):
 def test_merge_select_route_signed_zeros(gen, rows, m, n_out):
     """Rows whose distances are half +0.0 or -0.0: the select route orders
     them as the plain network does (equal, ties by id), so its ids are the
-    network's, and its distances too, bit for bit, but for a -0.0, which
-    it writes as +0.0."""
+    network's, and its distances too, bit for bit, signs of zero included,
+    but where a row pairs one id with both signs of zero."""
     from repro_torch.kernels import merge
     d, i = _merge_pairs(gen, rows, m)
     pick = torch.randint(0, 4, (rows, m), generator=gen)
@@ -272,22 +289,24 @@ def test_merge_select_route_signed_zeros(gen, rows, m, n_out):
     dc, ic = d.cuda(), i.cuda()
     sd, si = ref.sort_pairs(dc, ic)
     got = merge.sort_pairs_kernel(dc, ic, n_out=n_out)
-    _assert_pairs(got, (_positive_zero(sd[:, :n_out]), si[:, :n_out]))
+    _assert_pairs_signed(got, (sd[:, :n_out], si[:, :n_out]), dc, ic)
+    assert torch.signbit(got[0]).any()
     want = _merge_plain(dc, ic, n_out)
-    _assert_pairs(ops.merge_topk(dc, ic, n_out),
-                  (_positive_zero(want[0]), want[1]))
+    _assert_pairs_signed(ops.merge_topk(dc, ic, n_out), want,
+                         torch.where(ic < 0, torch.inf, dc), ic)
 
 
 def test_merge_topk_signed_zero_probe_row(gen):
     """Sorted by the float's bits, -0.0 would come before +0.0 and give ids
-    [3, 5, 9, 1]; the network calls them equal and takes [1, 3, 4, 5]."""
+    [3, 5, 9, 1]; the network calls them equal and takes [1, 3, 4, 5],
+    each zero with its own sign."""
     d = torch.tensor([[0.0, -0.0, 0.0, -0.0, 1.0, 2.0, -0.0, 0.0]])
     i = torch.tensor([[7, 3, 1, 5, 0, 2, 9, 4]], dtype=torch.int32)
     sd, si = ops.merge_topk(d.cuda(), i.cuda(), 4)
     pd, pi = ops.merge_topk(d, i, 4)
     assert si.tolist() == pi.tolist() == [[1, 3, 4, 5]]
-    assert torch.equal(sd.cpu(), pd)            # as values: -0.0 == +0.0
-    assert not torch.signbit(sd).any()
+    assert torch.equal(sd.cpu().view(torch.int32), pd.view(torch.int32))
+    assert torch.signbit(sd).tolist() == [[False, True, False, True]]
 
 
 def test_merge_topk_is_one_launch(gen):
@@ -635,3 +654,66 @@ def test_int8_serve_path_runs_on_the_card(gen):
     assert all(rep["launches"][k] > 0 for k in INT8_PATH)
     assert rep["self_hit_rate"] >= 0.95
     assert rep["store_bytes_per_item"] <= 256 / 3
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n_seg,nq", [(3, 32), (258, 32), (66, 128)])
+def test_quantized_query_kernel_per_segment_scale(gen, dtype, n_seg, nq):
+    """One K5 launch over n_seg segments, one scale each: equal to the
+    plain version with the (S,) scale (bit for bit at int8), and each
+    segment's block of rows bit-identical to that segment's own launch."""
+    from repro_torch.core import index as lidx
+    from repro_torch.kernels import quantize
+    cap, c, k = 1024, 1024, 40
+    tier = "int8" if dtype == torch.int8 else "bf16"
+    codes, scales = [], []
+    for s in range(n_seg):
+        cd, sc = quantize.encode(
+            torch.randn((cap, 64), generator=gen).cuda() * (1 + s % 5), tier)
+        codes.append(cd)
+        scales.append(sc)
+    q = torch.randn((nq, 64), generator=gen).cuda()
+    ids = torch.randint(-1, cap, (n_seg, nq, c), generator=gen,
+                        dtype=torch.int32).cuda()
+    ids[ids % 4 != 0] = -1                 # ~1/4 of the slots valid
+    rows = lidx.flat_rows(ids, cap)
+    codes_all, scale_all = torch.cat(codes), torch.stack(scales)
+    q_rep = q.repeat(n_seg, 1)
+    before = dispatch.launches["quantized_query"]
+    d, i = ops.quantized_query_topk(q_rep, codes_all, scale_all, rows, k)
+    assert dispatch.launches["quantized_query"] == before + 1
+    dp, ip = ref.quantized_topk_ref(q_rep, codes_all, scale_all, rows, k)
+    _assert_topk_matches(d, i, dp, ip, exact=dtype == torch.int8)
+    for s in sorted({0, n_seg // 2, n_seg - 1}):
+        ds, is_ = ops.quantized_query_topk(q, codes[s], scales[s],
+                                           ids[s].contiguous(), k)
+        blk = slice(s * nq, (s + 1) * nq)
+        assert torch.equal(d[blk].view(torch.int32), ds.view(torch.int32))
+        assert torch.equal(i[blk], torch.where(is_ >= 0, is_ + s * cap, -1))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8", "bf16"])
+def test_stacked_query_bit_equal_to_fanout_on_the_card(gen, precision):
+    """The stacked query against the per-segment fan-out on the card, bit
+    for bit, with deletes in sealed segments and the delta and one sealed
+    segment fully tombstoned; K1 launched once a batch, K2 + K5 twice."""
+    import numpy as np
+    from repro_torch.core import index as lidx
+    from repro_torch.serve import SegmentedIndex
+    cfg = lidx.IndexConfig(n_dims=64, n_tables=8, n_hashes=4,
+                           log2_buckets=10, bucket_capacity=32, r=4.0)
+    si = SegmentedIndex(cfg, segment_capacity=1024, device="cuda",
+                        precision=precision)
+    rng = np.random.default_rng(3)
+    emb = (rng.normal(size=(9 * 1024 + 300, 64)) * 0.3).astype(np.float32)
+    si.insert(emb)
+    si.delete(np.r_[np.arange(0, len(emb), 7), np.arange(2048, 3072)])
+    q = emb[rng.integers(0, len(emb), 32)] + 0.01
+    dispatch.reset_launches()
+    got = si.query(q, 10, n_probes=4)
+    counts = dict(dispatch.launches)
+    want = si._query_fanout(q, 10, n_probes=4)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert counts["hash_mm"] == 1
+    assert counts["fused_query"] + counts["quantized_query"] == 2
