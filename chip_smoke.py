@@ -39,8 +39,19 @@ each of which raises on failure (the script then exits non-zero):
 7. int8 path: the same run with ``precision="int8"`` (phase 6's tenant
    still alive), profiled and held against the fan-out likewise, then
    both tenants answer the same 64 probes; and the simhash path:
-   ``SimHash.__call__`` over every live item.  Launch counts are read
-   around each.
+   ``SimHash.__call__`` over every live item;
+8. compaction, on phase 6's tenant and then phase 7's: 35% of the live
+   gids deleted, the delta sealed, then a ``MaintenancePool`` worker
+   compacts the index while the main thread streams 32-row batches, each
+   of whose answers must equal, bit for bit, the answer before the job or
+   the one after it; afterwards the index must hold only live items in
+   ceil(n_live / 1024) segments, answer bit for bit as its per-segment
+   fan-out and as an index filled with the same live items in gid order,
+   and find its held items (self-hit >= 0.95); on the int8 tenant the
+   kept items' survivor rows must be bit-exact, and both compacted tenants
+   must still give int8 recall@10 vs fp32 >= 0.98 at <= 1/3 the bytes.
+
+Launch counts are read around each of phases 6-8.
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -52,7 +63,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2, 6 and 7 and ends with the card's line and one JSON
+runs phases 1, 2, 6, 7 and 8 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -1579,7 +1590,7 @@ def check_report(report, tier):
         raise AssertionError(f"{tier}: recall {report['recall_at_k']}")
 
 
-def compare_tiers(sv32, sv8, report, report8, n_probe=64, k=10):
+def compare_tiers(sv32, sv8, when, n_probe=64, k=10):
     """Both tenants hold the same items (one seed); the same 64 probes
     through each: recall@10 of the int8 answer against the fp32 answer,
     and the sealed store's bytes per item."""
@@ -1592,16 +1603,44 @@ def compare_tiers(sv32, sv8, report, report8, n_probe=64, k=10):
     hits = [len(set(a[a >= 0]) & set(b[b >= 0])) / max(1, (b >= 0).sum())
             for a, b in zip(g8, g32)]
     recall = float(np.mean(hits))
-    ratio = report8["store_bytes_per_item"] / report["store_bytes_per_item"]
-    log("  tiers " + json.dumps({
+    b32 = sv32.index.store_bytes_per_item()
+    b8 = sv8.index.store_bytes_per_item()
+    ratio = b8 / b32
+    log(f"  tiers ({when}) " + json.dumps({
         "int8_recall_at_10_vs_fp32": recall,
-        "store_bytes_per_item_fp32": report["store_bytes_per_item"],
-        "store_bytes_per_item_int8": report8["store_bytes_per_item"],
+        "store_bytes_per_item_fp32": b32, "store_bytes_per_item_int8": b8,
         "store_ratio": ratio, "probes": n_probe}))
     if ratio > 1.0 / 3.0:
-        raise AssertionError(f"int8 sealed store is {ratio:.3f} of fp32's")
+        raise AssertionError(f"int8 sealed store is {ratio:.3f} of fp32's "
+                             f"({when})")
     if recall < 0.98:
-        raise AssertionError(f"int8 recall@10 vs fp32 {recall:.4f} < 0.98")
+        raise AssertionError(f"int8 recall@10 vs fp32 {recall:.4f} < 0.98 "
+                             f"({when})")
+
+
+def answer(idx, b):
+    """One query of ``idx`` (k 10, 4 probes): (gids, distance bits) on the
+    host."""
+    g, d = idx.query(b, 10, 4)
+    return g.cpu().numpy(), d.cpu().numpy().view(np.int32)
+
+
+def same(a, b) -> bool:
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def fanout_equal(idx, probes, n_probe, tier):
+    """The stacked query against the per-segment fan-out, bit for bit, on
+    the first ``n_probe`` probes as 32-row batches and on 128 probes as
+    one batch."""
+    for rows, b in [(32, probes[s:s + 32]) for s in range(0, n_probe, 32)
+                    ] + [(128, probes[:128])]:
+        g, d = idx._query_fanout(b, 10, 4)
+        if not same(answer(idx, b), (g.cpu().numpy(),
+                                     d.cpu().numpy().view(np.int32))):
+            raise AssertionError(f"stacked parity ({tier}, {rows} rows): "
+                                 "the stacked query differs from the "
+                                 "per-segment fan-out")
 
 
 def stacked_parity(sv, prof, tier, n_probe=64):
@@ -1618,17 +1657,7 @@ def stacked_parity(sv, prof, tier, n_probe=64):
         return
     rng = np.random.default_rng(31)
     probes = sv.embed(sample_fvals(rng, sv.nodes(), 2 * n_probe)).cpu()
-    probes = probes.numpy()
-    for rows, b in ((32, probes[:32]), (32, probes[32:n_probe]),
-                    (128, probes[:128])):
-        g, d = idx.query(b, 10, 4)
-        gf, df = idx._query_fanout(b, 10, 4)
-        if not (np.array_equal(g.cpu().numpy(), gf.cpu().numpy())
-                and np.array_equal(d.cpu().numpy().view(np.int32),
-                                   df.cpu().numpy().view(np.int32))):
-            raise AssertionError(f"stacked parity ({tier}, {rows} rows): "
-                                 "the stacked query differs from the "
-                                 "per-segment fan-out")
+    fanout_equal(idx, probes.numpy(), n_probe, tier)
     per = prof["launches_per_batch"]
     if per["hash_mm"] != 1 or per["fused_query"] + per[
             "quantized_query"] > 2:
@@ -1638,6 +1667,204 @@ def stacked_parity(sv, prof, tier, n_probe=64):
         f"{n_probe} probes in 32-row batches and {2 * n_probe} in a 128-row "
         "batch, gids and distance bits equal to the per-segment fan-out; "
         f"launches per profiled batch {per}")
+
+# -- phase 8: compaction ------------------------------------------------------
+
+
+COMPACT_DELETE_FRAC = 0.35    # above launch.serve's compact_at of 0.3
+COMPACT_STREAM = 50           # 32-row batches timed before and after
+
+
+def stream_batches(idx, batches, n):
+    """``n`` queries, the 32-row batches in turn, each ending in its copy
+    to the host: (answers, host-clock seconds of each)."""
+    out, secs = [], []
+    for i in range(n):
+        t = time.perf_counter()
+        out.append(answer(idx, batches[i % len(batches)]))
+        secs.append(time.perf_counter() - t)
+    return out, secs
+
+
+def batch_rate(secs, rows=32) -> dict:
+    return {"p50_ms": statistics.median(secs) * 1e3 if secs else None,
+            "qps": rows * len(secs) / sum(secs) if secs else None,
+            "batches": len(secs)}
+
+
+def stacked_scorer_record(idx, b):
+    """K2 (fp32) or K5 (int8) at the stacked launch that one query of
+    ``b`` through ``idx`` makes, on the inputs that launch got: card,
+    plain and library times and the bound, as phase 5's records.  The
+    launches made to time it are taken back out of the counts."""
+    from repro_torch.kernels import dispatch, ops
+    name = ("fused_query_topk" if idx.precision == "fp32"
+            else "quantized_query_topk")
+    real, seen = getattr(ops, name), []
+
+    def grab(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+    setattr(ops, name, grab)
+    try:
+        idx.query(b, 10, 4)
+    finally:
+        setattr(ops, name, real)
+    a, kw = max(seen, key=lambda s: s[0][0].shape[0])   # the most rows
+    counts = dict(dispatch.launches)
+    if idx.precision == "fp32":
+        t = _k2_record(*a, big=True)
+    else:
+        t = _k5_record(*a, kw, big=True)
+    for k, v in counts.items():          # (Counter.update would add)
+        dispatch.launches[k] = v
+    t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"])
+    return t
+
+
+def pick_victims(sv):
+    """``COMPACT_DELETE_FRAC`` of the tenant's live gids, drawn from a
+    seeded numpy generator."""
+    gids = sv.index.live_items()[1].cpu().numpy()
+    rng = np.random.default_rng(18)
+    return np.sort(rng.choice(gids, size=int(COMPACT_DELETE_FRAC *
+                                             gids.size), replace=False))
+
+
+def compaction_phase(reg, tier, victims, prof_before):
+    """Delete ``victims`` from the registry's l2-basis tenant, seal, then
+    compact it on a ``MaintenancePool`` worker while this thread streams
+    32-row batches; check the answers during and after the job (see the
+    module docstring, phase 8) and return the phase's numbers."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import sample_fvals, self_hit_rate
+    from repro_torch.serve import MaintenancePool, SegmentedIndex
+    from repro_torch.serve.stats import recall_proxy
+    sv = reg.get("l2-basis")
+    idx = sv.index
+    n_deleted = sv.delete(victims)
+    rng = np.random.default_rng(41)
+    probes = sv.embed(sample_fvals(rng, sv.nodes(), 128)).cpu().numpy()
+    batches = [probes[:32], probes[32:64]]
+    # timed while the index still has a partial delta, as it has after
+    _, before_s = stream_batches(idx, batches, COMPACT_STREAM)
+    # the freeze's seal is then a no-op, so the job shows two states only
+    sv.maintenance.seal()
+    emb_pre, gid_pre = idx.live_items()
+    n_live = gid_pre.shape[0]
+    rows_pre = (idx._survivor_rows(gid_pre.cpu().numpy()[None].copy())
+                if tier == "int8" else None)
+    lay_pre, seg_pre = idx.layout(), len(idx.segments)
+    pre = [answer(idx, b) for b in batches]
+    scorer_pre = stacked_scorer_record(idx, batches[0])
+
+    phase_s = {}
+
+    def timed(name):
+        fn = getattr(idx, name)
+
+        def call(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            phase_s[name.removeprefix("_compact_")] = time.perf_counter() - t
+            return out
+        return call
+    for name in ("_compact_freeze", "_compact_build", "_compact_swap"):
+        setattr(idx, name, timed(name))
+    torch.cuda.synchronize()
+    mem_pre = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k1_pre = dispatch.launches["hash_mm"]
+    during, during_s = [], []
+    pool = MaintenancePool(reg, workers=1)
+    try:
+        job = pool.submit("l2-basis", "compact")
+        while pool.status(job)["status"] in ("queued", "running"):
+            t = time.perf_counter()
+            during.append(answer(idx, batches[len(during) % 2]))
+            during_s.append(time.perf_counter() - t)
+        st = pool.wait(job, timeout_s=600.0)
+    finally:
+        pool.stop(timeout_s=600.0)
+        for name in ("_compact_freeze", "_compact_build", "_compact_swap"):
+            delattr(idx, name)
+    if st["status"] != "done":
+        raise AssertionError(f"compaction ({tier}) failed: {st['error']}\n"
+                             f"{st['traceback']}")
+    torch.cuda.synchronize()
+    k1_build = dispatch.launches["hash_mm"] - k1_pre - len(during)
+    peak, mem_post = torch.cuda.max_memory_allocated(), \
+        torch.cuda.memory_allocated()
+    post = [answer(idx, b) for b in batches]
+    torn = [i for i, a in enumerate(during)
+            if not (same(a, pre[i % 2]) or same(a, post[i % 2]))]
+    if torn:
+        raise AssertionError(f"compaction ({tier}): {len(torn)} of "
+                             f"{len(during)} answers during the job equal "
+                             "neither the answer before it nor after it")
+    _, after_s = stream_batches(idx, batches, COMPACT_STREAM)
+
+    lay = idx.layout()
+    if not idx.n_items == idx.n_live == n_live:
+        raise AssertionError(f"compaction ({tier}): n_items {idx.n_items}, "
+                             f"n_live {idx.n_live}, want {n_live}")
+    if len(idx.segments) != -(-n_live // idx.segment_capacity) or \
+            lay["n_sealed"] != len(idx.segments) - 1:
+        raise AssertionError(f"compaction ({tier}): {len(idx.segments)} "
+                             f"segments, layout {lay}, for {n_live} items")
+    fanout_equal(idx, probes, 64, f"{tier}, compacted")
+    # an index filled with the same live items in gid order
+    oracle = SegmentedIndex(idx.cfg, segment_capacity=idx.segment_capacity,
+                            insert_chunk=idx.insert_chunk, family=idx.family,
+                            precision=idx.precision,
+                            survivor_k=idx.survivor_k, device=idx.device)
+    order = torch.argsort(gid_pre, stable=True)
+    oracle.insert(emb_pre[order], gids=gid_pre[order].cpu().numpy())
+    for b in batches + [probes]:
+        if not same(answer(idx, b), answer(oracle, b)):
+            raise AssertionError(f"compaction ({tier}): answers differ from "
+                                 "an index filled in gid order")
+    del oracle
+    if rows_pre is not None:
+        g_np = gid_pre.cpu().numpy()[None].copy()
+        rows_post = idx._survivor_rows(g_np)
+        if not (np.array_equal(g_np[0], gid_pre.cpu().numpy()) and
+                np.array_equal(rows_post.view(np.int32),
+                               rows_pre.view(np.int32))):
+            raise AssertionError(f"compaction ({tier}): the kept items' "
+                                 "survivor rows changed")
+    self_hit = self_hit_rate(sv, 10, 4, 64)
+    if self_hit < 0.95:
+        raise AssertionError(f"compaction ({tier}): self-hit {self_hit}")
+    recall = recall_proxy(idx, probes[:64], 10, n_probes=4)
+    prof = profile_batches(sv)
+    scorer_post = stacked_scorer_record(idx, batches[0])
+    res = {
+        "tier": tier, "deleted": n_deleted, "n_live": n_live,
+        "segments_before": seg_pre, "segments_after": len(idx.segments),
+        "freeze_ms": phase_s["freeze"] * 1e3,
+        "build_ms": phase_s["build"] * 1e3, "swap_ms": phase_s["swap"] * 1e3,
+        "build_rows_per_s": n_live / phase_s["build"],
+        "k1_launches_in_build": k1_build,
+        "s_cap_before": lay_pre["s_cap"], "s_cap_after": lay["s_cap"],
+        "stack_bytes_before": lay_pre["bytes"],
+        "stack_bytes_after": lay["bytes"],
+        "memory_before": mem_pre, "peak_memory": peak,
+        "memory_after_swap": mem_post,
+        "before": batch_rate(before_s), "during": batch_rate(during_s),
+        "after": batch_rate(after_s),
+        "stacked_rows_per_batch_before": lay_pre["n_sealed"] * 32,
+        "stacked_rows_per_batch_after": lay["n_sealed"] * 32,
+        "scorer_ms_per_batch_before": prof_before["scorer_ms_per_batch"],
+        "scorer_ms_per_batch_after": prof["scorer_ms_per_batch"],
+        "stacked_scorer_before": scorer_pre,
+        "stacked_scorer_after": scorer_post,
+        "pre_equals_post": all(same(a, b) for a, b in zip(pre, post)),
+        "recall_at_10": recall, "self_hit_rate": self_hit}
+    log("  compaction " + json.dumps(res))
+    return res
 
 
 def simhash_path(sv, batch=SIMHASH_BATCH, bits_=SIMHASH_BITS):
@@ -1670,12 +1897,13 @@ def simhash_path(sv, batch=SIMHASH_BATCH, bits_=SIMHASH_BITS):
 
 
 def run_paths(card, smi):
-    """Phases 6-7: the fp32 main path, the int8 path beside it (each with
-    two profiled batches) and the simhash path; their launch counts and
-    the profiles and reports."""
+    """Phases 6-8: the fp32 main path, the int8 path beside it (each with
+    two profiled batches), the simhash path and the compaction of both
+    tenants; the launch counts of the runs summed, and the profiles and
+    reports."""
     from repro_torch.launch import serve
     from repro_torch.serve import ServableRegistry
-    log(f"[6/7] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/8] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve.run(
@@ -1685,7 +1913,7 @@ def run_paths(card, smi):
     check_report(report, "fp32")
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
 
-    log(f"[7/7] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/8] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -1695,15 +1923,34 @@ def run_paths(card, smi):
     prof8 = profile_batches(reg8.get("l2-basis"))
     check_report(report8, "int8")
     stacked_parity(reg8.get("l2-basis"), prof8, "int8")
-    compare_tiers(registry.get("l2-basis"), reg8.get("l2-basis"), report,
-                  report8)
-    counts7, _ = drive(lambda: simhash_path(reg8.get("l2-basis")), card, smi,
+    sv32, sv8 = registry.get("l2-basis"), reg8.get("l2-basis")
+    compare_tiers(sv32, sv8, "filled")
+    counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
+
+    log(f"[8/8] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+        "deleted, then a background compact under streamed 32-row batches, "
+        "fp32 tenant then int8")
+    victims = pick_victims(sv32)
+    if not np.array_equal(sv8.index.live_items()[1].cpu().numpy(),
+                          sv32.index.live_items()[1].cpu().numpy()):
+        raise AssertionError("the fp32 and int8 tenants hold other items")
+    counts_c, comp = drive(lambda: compaction_phase(
+        registry, "fp32", victims, prof), card, smi, FP32_PATH,
+        "compaction (fp32)")
+    counts_c8, comp8 = drive(lambda: compaction_phase(
+        reg8, "int8", victims, prof8), card, smi, INT8_PATH,
+        "compaction (int8)")
+    compare_tiers(sv32, sv8, "compacted")
     keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
             "self_hit_rate")
-    return counts, counts8, counts7, {
-        "fp32": {"profile": prof, **{k: report[k] for k in keep}},
-        "int8": {"profile": prof8, **{k: report8[k] for k in keep}}}
+    counts_all = {name: counts[name] + counts8[name] + counts7[name]
+                  + counts_c[name] + counts_c8[name] for name in counts}
+    return counts_all, {
+        "fp32": {"profile": prof, **{k: report[k] for k in keep},
+                 "compaction": comp},
+        "int8": {"profile": prof8, **{k: report8[k] for k in keep},
+                 "compaction": comp8}}
 
 
 # -- main ---------------------------------------------------------------------
@@ -1734,14 +1981,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/7] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/8] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/7] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/8] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -1750,21 +1997,21 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(0)
     if args.paths_only:
-        paths = run_paths(card, smi)[3]
+        paths = run_paths(card, smi)[1]
         print(smi)
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/7] CPU (plain versions) vs card (kernels) parity")
+        log("[4/8] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
-        log(f"[5/7] timings, {smi}")
+        log(f"[5/8] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/7] kernel checks against the plain versions on the card: "
+    log("[3/8] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes; dct_mm "
         "rtol 1e-5 atol 1e-5, bit-equal across batch sizes; "
@@ -1873,16 +2120,16 @@ def main(argv=None) -> int:
                                check_simhash_shapes(gen16))
     check_simhash_batch_invariance(gen16)
 
-    log("[4/7] CPU (plain versions) vs card (kernels) parity")
+    log("[4/8] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
 
-    log("[5/7] timings (median of CUDA events over "
+    log("[5/8] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn)
 
-    counts, counts8, counts7, _ = run_paths(card, smi)
+    counts, _ = run_paths(card, smi)
 
     kernels = []
     for name in dispatch.KERNELS:
@@ -1892,7 +2139,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": counts[name] + counts8[name] + counts7[name],
+            "launches": counts[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

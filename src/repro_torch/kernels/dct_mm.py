@@ -52,5 +52,5 @@ def dct_mm(fvals: torch.Tensor, dct_t: torch.Tensor, scale: torch.Tensor
     code = fn(pf, pm, ps, m, n, d, plan.rows, plan.vec, out.data_ptr(),
               dispatch.stream_handle(fvals))
     _build.check(lib, "dct_mm", code)
-    dispatch.launches["dct_mm"] += 1
+    dispatch.count_launch("dct_mm")
     return out

@@ -12,12 +12,16 @@ argument resolved by :func:`resolve_device`: ``None`` means the card, and
 with no card that raises instead of quietly running on the CPU.
 
 ``launches`` counts, per kernel, the launches its wrapper made -- one per
-launch, incremented right after the kernel was enqueued and nowhere else --
-so a run can show which kernels its main path went through.
+launch, counted by :func:`count_launch` right after the kernel was enqueued
+and nowhere else -- so a run can show which kernels its main path went
+through.  The count is taken under a lock: a maintenance worker and the
+query thread launch kernels at once, and ``+= 1`` on a ``Counter`` is a
+read-modify-write that threads can interleave.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import Counter
 
 import torch
@@ -31,23 +35,37 @@ KERNELS = ("hash_mm", "dct_mm", "fused_query", "merge", "quantized_query",
 STORE_DTYPES = ("fp32", "bf16", "int8")
 
 launches: Counter = Counter({name: 0 for name in KERNELS})
+_launches_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``name``'s launch count (wrappers call it right after
+    enqueueing their kernel)."""
+    with _launches_lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for name in KERNELS:
-        launches[name] = 0
+    with _launches_lock:
+        for name in KERNELS:
+            launches[name] = 0
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU.  Raises when the card is asked for (or implied) and absent."""
+    for the CPU.  Raises when the card is asked for (or implied) and absent.
+    A card without an index is pinned to the calling thread's current one,
+    so a worker thread that makes tensors on an index's device lands on
+    that index's card, whatever the worker's own current device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "repro_torch runs on a CUDA device and none is available; "
                 "pass device='cpu' to run the plain PyTorch versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         return dev
     if dev.type == "cpu":
         return dev

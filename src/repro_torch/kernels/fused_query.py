@@ -122,5 +122,5 @@ def fused_query_topk(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
               plan.lanes.bit_length() - 1, int(plan.vec), out_d.data_ptr(),
               out_i.data_ptr(), dispatch.stream_handle(q))
     _build.check(lib, "fused_query", code)
-    dispatch.launches["fused_query"] += 1
+    dispatch.count_launch("fused_query")
     return out_d, out_i

@@ -53,5 +53,5 @@ def hash_mm(x: torch.Tensor, alpha: torch.Tensor, b: torch.Tensor, r: float
     code = fn(px, pa, pb, float(r), m, n, k, plan.rows, plan.vec,
               h.data_ptr(), proj.data_ptr(), dispatch.stream_handle(x))
     _build.check(lib, "hash_mm", code)
-    dispatch.launches["hash_mm"] += 1
+    dispatch.count_launch("hash_mm")
     return h, proj

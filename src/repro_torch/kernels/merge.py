@@ -125,7 +125,7 @@ def _select(d: torch.Tensor, i: torch.Tensor, n_out: int, mask_invalid: bool
               int(pl.vec), int(mask_invalid), d_out.data_ptr(),
               i_out.data_ptr(), dispatch.stream_handle(d))
     _build.check(lib, "merge", code)
-    dispatch.launches["merge"] += 1
+    dispatch.count_launch("merge")
     return d_out, i_out
 
 
@@ -169,7 +169,7 @@ def sort_pairs_kernel(d: torch.Tensor, i: torch.Tensor, sorted_run: int = 1,
     code = fn(d.data_ptr(), i.data_ptr(), rows, m, pw, sorted_run, n_out,
               d_out.data_ptr(), i_out.data_ptr(), dispatch.stream_handle(d))
     _build.check(lib, "merge", code)
-    dispatch.launches["merge"] += 1
+    dispatch.count_launch("merge")
     return d_out, i_out
 
 

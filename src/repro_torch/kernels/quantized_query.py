@@ -80,5 +80,5 @@ def quantized_query_topk(q: torch.Tensor, codes: torch.Tensor,
               plan.lanes.bit_length() - 1, int(plan.vec), out_d.data_ptr(),
               out_i.data_ptr(), dispatch.stream_handle(q))
     _build.check(lib, "quantized_query", code)
-    dispatch.launches["quantized_query"] += 1
+    dispatch.count_launch("quantized_query")
     return out_d, out_i

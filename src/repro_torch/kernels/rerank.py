@@ -93,5 +93,5 @@ def rerank_distances(q: torch.Tensor, emb: torch.Tensor, ids: torch.Tensor,
               pl.lanes.bit_length() - 1, int(pl.vec), out.data_ptr(),
               dispatch.stream_handle(q))
     _build.check(lib, "rerank", code)
-    dispatch.launches["rerank"] += 1
+    dispatch.count_launch("rerank")
     return out

@@ -71,5 +71,5 @@ def simhash_pack(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     code = fn(px, pa, m, n, k, pl.words, int(pl.vec), sig.data_ptr(),
               dispatch.stream_handle(x))
     _build.check(lib, "simhash_pack", code)
-    dispatch.launches["simhash_pack"] += 1
+    dispatch.count_launch("simhash_pack")
     return sig

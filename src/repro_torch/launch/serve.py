@@ -4,21 +4,25 @@
     python -m repro_torch.launch.serve --n-items 262144 --steps 20
     python -m repro_torch.launch.serve --device cpu --n-items 2048 --steps 4
     python -m repro_torch.launch.serve --precision int8      # int8 tier
+    python -m repro_torch.launch.serve --device cpu --n-items 0 --steps 40 \
+        --delete-frac 0.9 --compact-at 0.3                  # compacts
 
 The port of the scripted demo loop of ``repro/launch/serve.py`` for the
 ``l2-basis`` tenant (p = 2, Chebyshev-basis embedding, Eq. 3).  It first
 fills the index with ``--n-items`` random smooth functions (embed +
 insert), then runs ``--steps`` ticks, each of which embeds and inserts a
 batch, submits several small query requests (perturbations of fresh
-functions) through the micro-batcher, and tombstones a slice of the oldest
-items.  It ends with a report: ingest rate, QPS and latency percentiles,
-recall@k against exact brute force on a probe set, the self-hit rate of
-stored items queried exactly, segment occupancy, the sealed store's bytes
-per item, device memory, and the kernels' launch counts.  ``--precision``
-stores the sealed segments as bf16 or int8 codes (the quantized tier).
+functions) through the micro-batcher, tombstones a slice of the oldest
+items, and compacts the tenant (``servable.maintenance.compact()``) once
+its tombstone share exceeds ``--compact-at``.  It ends with a report:
+ingest rate, QPS and latency percentiles, recall@k against exact brute
+force on a probe set, the self-hit rate of stored items queried exactly,
+segment occupancy, compactions, the sealed store's bytes per item, device
+memory, and the kernels' launch counts.  ``--precision`` stores the sealed
+segments as bf16 or int8 codes (the quantized tier).
 
-Compaction, the other tenants, WAL, snapshots and sharding are not ported
-yet; the defaults keep the JAX demo's shapes.
+The other tenants, WAL, snapshots and sharding are not ported yet; the
+defaults keep the JAX demo's shapes.
 """
 
 from __future__ import annotations
@@ -71,6 +75,20 @@ def _held_mask(index) -> torch.Tensor:
     return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.bool)
 
 
+def self_hit_rate(sv, k: int, n_probes: int, n: int) -> float:
+    """Share of ``n`` stored items (evenly spaced over the live items held
+    in at least one table) that, queried exactly, come back first at
+    distance 0.  An item every one of whose buckets overflowed is in no
+    table and no query can find it, so it is not asked for."""
+    emb_live, gid_live = sv.index.live_items()
+    held_idx = torch.nonzero(_held_mask(sv.index)).flatten().cpu().numpy()
+    pick = held_idx[np.linspace(0, held_idx.size - 1,
+                                min(n, held_idx.size)).astype(int)]
+    g, d = sv.query(emb_live[pick].cpu().numpy(), k, n_probes)
+    want = gid_live[pick].cpu().numpy()
+    return float(np.mean((g[:, 0] == want) & (d[:, 0] == 0.0)))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -79,7 +97,7 @@ def _sync(device: torch.device) -> None:
 def run(*, device=None, n_items: int = 0, steps: int = 20,
         insert_batch: int = 64, query_batch: int = 8,
         queries_per_step: int = 4, k: int = 10, n_probes: int = 4,
-        delete_frac: float = 0.05, n_dims: int = 64,
+        delete_frac: float = 0.05, compact_at: float = 0.3, n_dims: int = 64,
         segment_capacity: int = 1024, recall_probe_size: int = 64,
         self_hit_probes: int = 64, fill_batch: int = 8192, seed: int = 0,
         precision: str = "fp32", registry=None, log=print) -> dict:
@@ -95,6 +113,7 @@ def run(*, device=None, n_items: int = 0, steps: int = 20,
                                         precision=precision))
     nodes = sv.nodes()
     inserted: list = []
+    compactions = 0
 
     t0 = time.perf_counter()
     for start in range(0, n_items, fill_batch):
@@ -121,6 +140,12 @@ def run(*, device=None, n_items: int = 0, steps: int = 20,
         if n_del and len(inserted) > 4 * n_del:
             victims, inserted = inserted[:n_del], inserted[n_del:]
             sv.delete(victims)
+        # the tombstone share from the index's host counters (a device
+        # reduction per segment would cost a sync each)
+        n_all = sv.index.n_items
+        if n_all and (n_all - sv.index.n_live) / n_all > compact_at:
+            sv.maintenance.compact()
+            compactions += 1
     sv.batcher.flush_all()
     _sync(dev)
     loop_s = time.perf_counter() - t0
@@ -135,18 +160,8 @@ def run(*, device=None, n_items: int = 0, steps: int = 20,
     sv.stats.record_recall(recall)
 
     # Stored items queried exactly must come back first, at distance 0:
-    # build and query hash through one implementation.  "Stored" means held
-    # in a bucket slot of at least one table -- an item every one of whose
-    # buckets overflowed is in no table and cannot be found by any query.
-    emb_live, gid_live = sv.index.live_items()
-    held = _held_mask(sv.index)
-    held_idx = torch.nonzero(held).flatten().cpu().numpy()
-    pick = held_idx[np.linspace(0, held_idx.size - 1,
-                                min(self_hit_probes, held_idx.size)
-                                ).astype(int)]
-    g, d = sv.query(emb_live[pick].cpu().numpy(), k, n_probes)
-    want = gid_live[pick].cpu().numpy()
-    self_hit = float(np.mean((g[:, 0] == want) & (d[:, 0] == 0.0)))
+    # build and query hash through one implementation.
+    self_hit = self_hit_rate(sv, k, n_probes, self_hit_probes)
 
     rep = sv.report()
     stats = rep["stats"]
@@ -168,12 +183,13 @@ def run(*, device=None, n_items: int = 0, steps: int = 20,
         "k": k,
         "recall_probe_size": recall_probe_size,
         "self_hit_rate": self_hit,
-        "held_frac": float(held.float().mean()),
+        "held_frac": float(_held_mask(sv.index).float().mean()),
         "precision": precision,
         "store_bytes_per_item": rep["store"]["store_bytes_per_item"],
         "rerank_survivor_frac": rep["store"]["rerank_survivor_frac"],
         "n_segments": rep["occupancy"]["n_segments"],
         "n_live": rep["occupancy"]["n_live"],
+        "compactions": compactions,
         "bucket_overflow_frac": rep["occupancy"]["bucket_overflow_frac"],
         "unique_shapes": rep["batcher"]["unique_shapes"],
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
@@ -197,6 +213,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--n-probes", type=int, default=4)
     ap.add_argument("--n-dims", type=int, default=64)
     ap.add_argument("--delete-frac", type=float, default=0.05)
+    ap.add_argument("--compact-at", type=float, default=0.3,
+                    help="compact the tenant when its tombstone share "
+                         "exceeds this")
     ap.add_argument("--segment-capacity", type=int, default=1024)
     ap.add_argument("--recall-probe-size", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
@@ -211,6 +230,7 @@ def main(argv=None) -> dict:
                  query_batch=args.query_batch,
                  queries_per_step=args.queries_per_step, k=args.k,
                  n_probes=args.n_probes, delete_frac=args.delete_frac,
+                 compact_at=args.compact_at,
                  n_dims=args.n_dims, segment_capacity=args.segment_capacity,
                  recall_probe_size=args.recall_probe_size, seed=args.seed,
                  precision=args.precision)

@@ -1,7 +1,7 @@
 """Servable registry: named endpoints over segmented indexes.
 
-The port of ``repro/serve/registry.py`` without WAL, checkpoints, meshes or
-maintenance (and without the ``$REPRO_STORE_DTYPE`` override: a tenant's
+The port of ``repro/serve/registry.py`` without WAL, checkpoints or meshes
+(and without the ``$REPRO_STORE_DTYPE`` override: a tenant's
 precision is its spec's).  A :class:`ServableSpec` is the declarative
 tenant config; a :class:`Servable` is the live endpoint (embedder +
 segmented index + micro-batcher + stats) on one device; the
@@ -15,6 +15,7 @@ so ``family=`` injects one (tests hand both packages the same arrays).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -24,6 +25,7 @@ from ..core.index import IndexConfig
 from ..embedders import embedder_names, make_embedder
 from ..kernels import dispatch
 from .batcher import MicroBatcher
+from .maintenance import ServableMaintenance
 from .segments import SegmentedIndex
 from .stats import ServingStats, occupancy_report, store_report
 
@@ -90,6 +92,9 @@ class Servable:
                                     precision=spec.precision,
                                     survivor_k=spec.survivor_k,
                                     device=self.device)
+        # the tenant's maintenance handle (seal, compact); the
+        # MaintenancePool is its background caller
+        self.maintenance = ServableMaintenance(self)
         self.batcher = MicroBatcher(self._raw_query,
                                     chunk_sizes=spec.chunk_sizes,
                                     max_delay_ms=spec.max_delay_ms,
@@ -118,6 +123,14 @@ class Servable:
         n = self.index.delete(gids)
         self.stats.record_delete(n)
         return n
+
+    def compact(self) -> int:
+        """Deprecated: use ``servable.maintenance.compact()``."""
+        warnings.warn(
+            "Servable.compact() is deprecated; compact through the "
+            "maintenance plane (servable.maintenance.compact())",
+            DeprecationWarning, stacklevel=2)
+        return self.maintenance.compact()
 
     def _raw_query(self, queries, k: int, n_probes: int):
         g, d = self.index.query(queries, k, n_probes=n_probes)

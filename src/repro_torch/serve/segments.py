@@ -12,6 +12,11 @@ The port of ``repro/serve/segments.py`` on one device:
   segment's tensors become views of that slot;
 * **deletes** are tombstones in a per-segment live mask read at query time
   (through the views, in the stack);
+* **compaction** (``index.maintenance.compact()``) re-packs the live items
+  into fresh segments in three phases -- freeze (locked), a shadow build
+  with no lock while queries and writes go on, swap (locked) -- and the
+  index adopts the shadow's stack, whose slots hold only the items live
+  at the freeze (see :meth:`SegmentedIndex._maint_compact`);
 * **query** runs ``core.distributed.query_segments_stacked``: the batch is
   hashed and probed once (one K1 launch), one gather covers the stacked
   tables, one K2 launch scores every sealed segment and one more the
@@ -43,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -128,6 +134,10 @@ class SegmentedIndex:
         self._next_gid = 0
         self._lock = threading.RLock()
         self.n_rejected = 0
+        # the maintenance handle, built lazily; _compact_deletes is the
+        # delete ledger a compaction opens at freeze and re-applies at swap
+        self._maintenance = None
+        self._compact_deletes: Optional[set] = None
         self._open_segment()
 
     # -- lifecycle ----------------------------------------------------------
@@ -156,7 +166,25 @@ class SegmentedIndex:
     def n_items(self) -> int:
         return sum(s.n_items for s in self.segments)
 
+    @property
+    def maintenance(self):
+        """The maintenance handle (``serve.maintenance.IndexMaintenance``):
+        owns ``seal()`` and ``compact()`` and runs one at a time.  Insert,
+        delete and query stay on the index."""
+        if self._maintenance is None:
+            from .maintenance import IndexMaintenance
+            self._maintenance = IndexMaintenance(self)
+        return self._maintenance
+
     def seal(self) -> None:
+        """Deprecated: use ``index.maintenance.seal()``."""
+        warnings.warn(
+            "SegmentedIndex.seal() is deprecated; seal through the "
+            "maintenance plane (index.maintenance.seal())",
+            DeprecationWarning, stacklevel=2)
+        self._maint_seal()
+
+    def _maint_seal(self) -> None:
         """Seal the current delta (no-op if empty) and open a fresh one."""
         with self._lock:
             self._seal()
@@ -278,8 +306,14 @@ class SegmentedIndex:
     def delete(self, gids: Sequence[int]) -> int:
         """Tombstone items by global id; returns how many were live."""
         with self._lock:
+            req = np.asarray(gids).ravel().tolist()
+            if self._compact_deletes is not None:
+                # a compaction froze its input before this delete: ledger
+                # every requested gid, so the swap re-applies it to the
+                # shadow's copy (re-applying is idempotent)
+                self._compact_deletes.update(int(g) for g in req)
             by_seg: dict = {}
-            for g in np.asarray(gids).ravel().tolist():
+            for g in req:
                 loc = self._locator.get(int(g))
                 if loc is not None:
                     # a set per segment: a gid repeated in one call must
@@ -316,6 +350,121 @@ class SegmentedIndex:
             return (torch.zeros((0, self.cfg.n_dims), device=self.device),
                     torch.zeros((0,), dtype=torch.int32, device=self.device))
         return torch.cat(emb_parts), torch.cat(gid_parts)
+
+    def compact(self) -> int:
+        """Deprecated: use ``index.maintenance.compact()``."""
+        warnings.warn(
+            "SegmentedIndex.compact() is deprecated; compact through the "
+            "maintenance plane (index.maintenance.compact())",
+            DeprecationWarning, stacklevel=2)
+        return self._maint_compact()
+
+    def _maint_compact(self) -> int:
+        """Re-pack the live items into fresh segments (tombstoned rows are
+        dropped, gids are kept).  Returns the number of segments after it.
+
+        Three phases, so a worker thread can run the costly one while
+        queries and writes go on:
+
+        1. **freeze** (locked): seal the delta, so the input -- every
+           segment but the new delta -- is sealed, and open the delete
+           ledger;
+        2. **build** (no lock): insert the frozen segments' live rows, in
+           gid order, into a *shadow* index with this one's family, config
+           and tier;
+        3. **swap** (locked): adopt the shadow's segments, stack and
+           locator (or splice in the segments made since the freeze), and
+           re-apply the ledgered deletes.
+
+        Called inline, the three run back to back.  Queries answer from
+        the old segments until the swap and from the new ones after it;
+        with no bucket overflowing both answers are equal (invariant 11,
+        "maintenance is invisible").  Where buckets overflow, which items
+        a table holds depends on the insert order, so the answers may
+        differ, each the answer of one whole state.
+        """
+        frozen_n, frozen = self._compact_freeze()
+        try:
+            shadow = self._compact_build(frozen)
+        except BaseException:
+            with self._lock:
+                self._compact_deletes = None      # close the ledger
+            raise
+        return self._compact_swap(frozen_n, shadow)
+
+    def _compact_freeze(self) -> Tuple[int, List[Segment]]:
+        """Phase 1 (locked): make the compaction's input immutable."""
+        with self._lock:
+            self._seal()                 # no-op when the delta is empty
+            frozen = list(self.segments[:-1])
+            self._compact_deletes = set()
+            return len(frozen), frozen
+
+    def _compact_build(self, frozen: List[Segment]) -> "SegmentedIndex":
+        """Phase 2 (no lock): the shadow index of the frozen segments' live
+        items, their fp32 rows (on a quantized tier the survivor pool's,
+        never decoded codes) inserted in gid order.
+
+        Frozen segments are sealed, so concurrent writes can only flip
+        their live masks, and every such delete is in the ledger.  A seal
+        that doubles the stack meanwhile rebinds their views to a copy
+        with the same bytes; each attribute read here is one or the
+        other."""
+        shadow = SegmentedIndex(
+            self.cfg, segment_capacity=self.segment_capacity,
+            insert_chunk=self.insert_chunk, family=self.family,
+            precision=self.precision, survivor_k=self.survivor_k,
+            device=self.device)
+        if not frozen:
+            return shadow
+        live = torch.stack([s.live for s in frozen])
+        gids = torch.stack([s.gids for s in frozen])[live]
+        if self.precision == "fp32":
+            emb = torch.stack([s.state.db for s in frozen])[live]
+        else:
+            emb = torch.as_tensor(
+                np.stack([s.pool for s in frozen])[live.cpu().numpy()],
+                device=self.device)
+        order = torch.argsort(gids, stable=True)
+        if order.numel():
+            shadow.insert(emb[order], gids=gids[order].cpu().numpy())
+        return shadow
+
+    def _compact_swap(self, frozen_n: int, shadow: "SegmentedIndex") -> int:
+        """Phase 3 (locked): publish the shadow.
+
+        The index always keeps the shadow's ``SegmentStack`` (the old one
+        is dropped with the last view of it): its sealed segments are views
+        of that stack.  With nothing written since the freeze the index
+        adopts the shadow whole, its delta included.  Otherwise the
+        shadow's delta is sealed, the segments made since the freeze (the
+        current delta last) are spliced behind the shadow's, and the
+        shadow's stack is rebuilt over the new sealed set
+        (``SegmentStack.rebuild``: slot i = sealed segment i, views
+        rebound)."""
+        with self._lock:
+            after = self.segments[frozen_n:]
+            if len(after) == 1 and after[0].n_items == 0:
+                self.segments = shadow.segments
+                self._locator = shadow._locator
+                self._stack = shadow._stack
+            else:
+                shadow._seal()
+                sealed = shadow.segments[:-1] + after[:-1]
+                shadow._stack.rebuild(sealed)
+                self.segments = sealed + after[-1:]
+                self._stack = shadow._stack
+                locator = shadow._locator
+                base = len(shadow.segments) - 1
+                for j, seg in enumerate(after):
+                    for slot, g in enumerate(
+                            seg.gids[:seg.n_items].tolist()):
+                        locator[g] = (base + j, slot)
+                self._locator = locator
+            pending, self._compact_deletes = self._compact_deletes, None
+            if pending:
+                self.delete(sorted(pending))
+            return len(self.segments)
 
     # -- query --------------------------------------------------------------
 

@@ -135,8 +135,9 @@ class SegmentStack:
     def rebuild(self, segments: Sequence) -> None:
         """Restack ``segments`` as the whole sealed set, in order: slot i
         is ``segments[i]``.  S_cap follows :func:`headroom`, so a set that
-        fell to a quarter of the slots shrinks.  The entry point for a
-        compaction, which replaces the sealed set."""
+        fell to a quarter of the slots shrinks.  A compaction's splice
+        swap calls it on the shadow index's stack, which the index then
+        keeps."""
         self._restack(segments, headroom(len(segments), self.s_cap))
 
     def sealed(self):

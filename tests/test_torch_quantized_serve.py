@@ -203,7 +203,7 @@ def test_nan_rejected_at_seal_leaves_delta_mutable():
     # the seal-time defense: insert() already refuses NaN at the door
     idx.delta.state.db[0, 0] = float("nan")
     with pytest.raises(ValueError, match="non-finite"):
-        idx.seal()
+        idx.maintenance.seal()
     assert not idx.delta.sealed and len(idx.segments) == 1
     assert idx.delta.scale is None and idx.delta.pool is None
     assert idx.delta.state.db.dtype == torch.float32
@@ -212,12 +212,12 @@ def test_nan_rejected_at_seal_leaves_delta_mutable():
 def test_empty_seal_is_noop_and_single_item_seals():
     idx = SegmentedIndex(CFG_SMALL, segment_capacity=16, precision="int8",
                          device="cpu")
-    idx.seal()
+    idx.maintenance.seal()
     assert len(idx.segments) == 1
     g, d = idx.query(np.zeros((2, 8), np.float32), 3)
     assert (g == -1).all() and torch.isinf(d).all()
     idx.insert(np.full((1, 8), 0.5, np.float32))
-    idx.seal()
+    idx.maintenance.seal()
     sealed = idx.segments[0]
     assert sealed.sealed and sealed.scale is not None
     assert sealed.state.db.dtype == torch.int8

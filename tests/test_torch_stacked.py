@@ -271,7 +271,7 @@ def test_sealed_segments_are_views_of_the_stack(precision):
     for _ in range(6):
         ts.insert(_data(64, seed=len(widths)))
         widths.append(ts.layout()["s_cap"])
-    ts.seal()
+    ts.maintenance.seal()
     assert widths == [0, 1, 2, 4, 4, 8]            # after 0..5 seals
     lay = ts.layout()
     assert lay["n_sealed"] == 6 and lay["s_cap"] == 8
