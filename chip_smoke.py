@@ -14,14 +14,20 @@ each of which raises on failure (the script then exits non-zero):
    unaligned views, and bit for bit across batch sizes; K3's two routes
    bit for bit, the select route up to 41,280-pair rows and one row of
    100,000, on duplicate-heavy rows, on mixed +0.0 / -0.0 rows (signs
-   kept) and through ``ops.merge_topk``; K2 and K5 at the stacked
-   launches' shapes, 258 segments x 32 and x 128 rows, K5 with one scale
-   per segment; K6 at five widths and three metrics,
-   aligned and not; K7 bit for bit against its fmaf chain at five shapes,
-   aligned and not, and across batch sizes; the tie check over 8 seeds);
-4. parity: the l2-basis pipeline at 8,192 items on the CPU (plain
-   versions) and on the card (kernels) with one injected family, at fp32
-   and at the int8 tier (whose gids must be equal);
+   kept) and through ``ops.merge_topk``; K1's saturating conversion on a
+   1e12 alpha entry and on +-inf / NaN rows, bit-equal to the plain
+   version; ALSH through K7 (``"sign"``, (512, 67) -> 1024 bits) and K1
+   (``"l2"``); K1 through ``LazyPStableHash`` (p = 1.5, alpha grown from
+   128 to 384 rows) and a p = 0.5 ``PStableHash``; K2 and K5 at the
+   stacked launches' shapes, 258 segments x 32 and x 128 rows, at p = 2
+   and p = 1, K5 with one scale per segment;
+   K6 at five widths and three metrics, aligned and not; K7 bit for bit
+   against its fmaf chain at five shapes, aligned and not, and across
+   batch sizes; the tie check over 8 seeds);
+4. parity: the l2-basis, l1-qmc and w2-quantile pipelines at 8,192 items
+   on the CPU (plain versions) and on the card (kernels) with one
+   injected family each, and l2-basis at the int8 tier (whose gids must
+   be equal);
 5. timings: each kernel, its plain version and a PyTorch library call,
    CUDA-event medians, with the bytes and operations for the bound, and
    the host time per call of the kernel's wrapper and of the library
@@ -30,7 +36,8 @@ each of which raises on failure (the script then exits non-zero):
    launches over 258 segments (8,256 and 33,024 rows), K1 at 32, 128
    and 256 rows, K3 at the fp32 and int8 fan-ins, at 1,032 int8 segments
    and at the survivor sort (with ``torch.topk`` on int64 keys beside the
-   two-sort library call); and the launch floor, an empty kernel called
+   two-sort library call); K2 stacked at p = 1 on the l1-qmc tenant's
+   candidates (8,256 rows); and the launch floor, an empty kernel called
    through K1's ctypes route and launched as K1 is;
 6. main path: ``repro_torch.launch.serve`` filled to 262,144 items
    (256 sealed segments), then 20 demo steps; launch counts read around
@@ -49,9 +56,20 @@ each of which raises on failure (the script then exits non-zero):
    fan-out and as an index filled with the same live items in gid order,
    and find its held items (self-hit >= 0.95); on the int8 tenant the
    kept items' survivor rows must be bit-exact, and both compacted tenants
-   must still give int8 recall@10 vs fp32 >= 0.98 at <= 1/3 the bytes.
+   must still give int8 recall@10 vs fp32 >= 0.98 at <= 1/3 the bytes;
+9. tenants, after phases 6-8's tenants are released: the JAX demo's
+   l1-qmc (p = 1, Sobol nodes) and w2-quantile (W2 over 256 raw draws a
+   distribution) tenants through ``repro_torch.launch.serve`` at 262,144
+   items each and 20 steps at fp32, then l1-qmc at int8; for each, two
+   profiled 32-row batches, the stacked query bit-equal to the fan-out,
+   self-hit >= 0.95, the held share and recall@10; K4 launched 0 times;
+   int8 l1-qmc vs fp32 recall@10 >= 0.98 at <= 1/3 the bytes; the W2
+   oracle gate (``launch.w2_gate``, the bench's full config: best
+   recall@10 against ``gaussian_w2`` >= 0.9); the big W2 tenant's
+   recall@10 against ``gaussian_w2`` on 64 fresh Gaussians (reported);
+   the Wasserstein embed's card and host time per 128-row chunk.
 
-Launch counts are read around each of phases 6-8.
+Launch counts are read around each of phases 6-9.
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -63,7 +81,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2, 6, 7 and 8 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-9 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -243,6 +261,150 @@ def check_hash_mm(gen, m, n, k, r=4.0, offset=0, quiet=False):
             f"{(p - pp).abs().max().item():.3g}, {boundary} boundary "
             f"values, {flips} flipped)")
     return float((p - pp).abs().max())
+
+
+def check_hash_saturation(gen):
+    """K1's float -> int32 conversion against the plain version's
+    saturating one (``ref.floor_to_int32``): a family with one alpha entry
+    of 1e12 (its column's projections pass 2^31 both ways) and rows of
+    +inf, -inf, NaN, one +inf and one -inf entry.  Every saturated,
+    infinite or NaN projection must hash bit-equal (INT32_MAX, INT32_MIN,
+    0), the projections must agree as values (NaN where NaN), and the
+    finite ones away from a relative floor boundary as check_hash_mm."""
+    import torch
+    from repro_torch.kernels import hash_mm, ref
+    m, n, k, r = 32, 64, 32, 8.0
+    x = torch.randn((m, n), generator=gen) * 0.5
+    x[1], x[2], x[3] = torch.inf, -torch.inf, torch.nan
+    x[4, 0], x[5, 7] = torch.inf, -torch.inf
+    a = torch.empty((n, k)).cauchy_(generator=gen)
+    a[3, 5] = 1e12
+    b = torch.rand((k,), generator=gen)
+    x, a, b = x.cuda(), a.cuda(), b.cuda()
+    h, pj = hash_mm.hash_mm(x, a, b, r)
+    hp, pp = ref.hash_mm_proj_ref(x, a, b, r)
+    torch.cuda.synchronize()
+    wild = ~torch.isfinite(pp) | (pp.abs() >= 2.0 ** 31)
+    if not (torch.equal(torch.isnan(pj), torch.isnan(pp))
+            and torch.equal(pj[torch.isinf(pp)], pp[torch.isinf(pp)])):
+        raise AssertionError("hash_mm saturation: inf / NaN projections "
+                             "differ from the plain version's")
+    if not torch.equal(h[wild], hp[wild]):
+        raise AssertionError("hash_mm saturation: a saturated, infinite or "
+                             "NaN projection hashes otherwise than the "
+                             "plain version")
+    fin = ~wild
+    safe = fin & ((pp - torch.round(pp)).abs() > 1e-4 + 1e-6 * pp.abs())
+    if not (torch.allclose(pj[fin], pp[fin], rtol=1e-6, atol=1e-5)
+            and torch.equal(h[safe], hp[safe])):
+        raise AssertionError("hash_mm saturation: finite projections differ")
+    vals = {"INT32_MAX": int((h == 2 ** 31 - 1).sum()),
+            "INT32_MIN": int((h == -2 ** 31).sum()),
+            "NaN -> 0": int((torch.isnan(pp) & (h == 0)).sum())}
+    if not all(vals.values()):
+        raise AssertionError(f"hash_mm saturation: a case is missing {vals}")
+    log(f"  hash_mm saturation: {int(wild.sum())} saturated / infinite / NaN "
+        f"projections bit-equal to the plain version's {json.dumps(vals)}; "
+        f"{int((fin & ~safe).sum())} finite boundary values")
+
+
+def check_general_p_families(gen):
+    """K1 through the general-p families, each against the plain version
+    on the same rows: ``LazyPStableHash`` on its default device (the card)
+    with Chambers-Mallows-Stuck blocks at p = 1.5, at N_f = 100 and then
+    300, which grows alpha from 128 to 384 rows (the first 128 rows and the
+    N_f = 100 hashes must not change), and a ``PStableHash`` at p = 0.5
+    drawn by Chambers-Mallows-Stuck.  Projections within 1e-5 + 1e-6 of
+    their terms' size t = |x| @ |alpha| / r + |b|, hashes equal where
+    |proj - round(proj)| > 1e-4 + 1e-6 t (a heavy-tailed alpha makes the
+    boundary relative)."""
+    import torch
+    from repro_torch.core.hashes import LazyPStableHash, PStableHash
+    from repro_torch.kernels import ref
+
+    def held(what, x, alpha, b, r, h, pj=None):
+        hp, pp = ref.hash_mm_proj_ref(x, alpha, b, r)
+        terms = (x.abs() @ alpha.abs()) / r + b.abs()
+        if pj is not None and not (
+                (pj - pp).abs() <= 1e-5 + 1e-6 * terms).all():
+            raise AssertionError(f"{what}: projections differ from the "
+                                 "plain version's")
+        near = (pp - torch.round(pp)).abs() <= 1e-4 + 1e-6 * terms
+        bad = int(((h != hp) & ~near).sum())
+        if bad:
+            raise AssertionError(f"{what}: {bad} hashes differ from the "
+                                 "plain version away from a floor boundary")
+        return (f"{what} {tuple(h.shape)}: {int(near.sum())} boundary "
+                f"values, {int((h != hp).sum())} flipped, max |proj| "
+                f"{pp.abs().max().item():.3g}")
+
+    lz = LazyPStableHash.create(19, 32, r=4.0, p=1.5)
+    if lz.b.device.type != "cuda" or lz.coeffs.device.type != "cuda":
+        raise AssertionError("LazyPStableHash did not default to the card")
+    g = (torch.randn((64, 300), generator=gen) * 0.5).cuda()
+    h100 = lz(g[:, :100])
+    a128 = lz.coeffs.alpha(128).clone()
+    n_before = lz.coeffs.current_n
+    h300 = lz(g)
+    if (n_before, lz.coeffs.current_n) != (128, 384):
+        raise AssertionError(f"LazyPStableHash grew alpha from {n_before} "
+                             f"to {lz.coeffs.current_n} rows, not 128 to 384")
+    if not (torch.equal(lz.coeffs.alpha(128), a128)
+            and torch.equal(lz(g[:, :100]), h100)):
+        raise AssertionError("LazyPStableHash: growing alpha changed an "
+                             "issued row or hash")
+    lines = [held("LazyPStableHash p 1.5 N_f 100", g[:, :100],
+                  lz.coeffs.alpha(100), lz.b, lz.r, h100),
+             held("LazyPStableHash p 1.5 N_f 300", g, lz.coeffs.alpha(300),
+                  lz.b, lz.r, h300)]
+    fam = PStableHash.create(torch.Generator("cuda").manual_seed(19), 64, 32,
+                             r=8.0, p=0.5)
+    x = (torch.randn((128, 64), generator=gen) * 0.5).cuda()
+    lines.append(held("PStableHash p 0.5", x, fam.alpha, fam.b, fam.r,
+                      fam(x), fam.projections(x)))
+    torch.cuda.synchronize()
+    for line in lines:
+        log(f"  {line}: equal to the plain version")
+
+
+def check_alsh(gen):
+    """ALSH (``core.hashes.ALSH``) on the card against its plain version
+    on the same transformed rows: the ``"sign"`` variant's words through
+    K7 at (512, 67) -> 1024 bits, every bit equal where |P(x) @ alpha| >=
+    1e-5 and bit for bit K7's fmaf chain; the ``"l2"`` variant's hashes
+    through K1, equal away from a floor boundary; both for the database
+    transform P and the query transform Q."""
+    import torch
+    from repro_torch.core.hashes import ALSH
+    from repro_torch.kernels import ref
+    db = (torch.randn((SIMHASH_BATCH, 64), generator=gen) * 0.5).cuda()
+    shifts = torch.arange(32, device="cuda")
+    for variant in ("sign", "l2"):
+        al = ALSH.create(torch.Generator("cuda").manual_seed(19), 64,
+                         SIMHASH_BITS if variant == "sign" else 32,
+                         r=1.0, variant=variant)
+        for what, x, hashed in (
+                ("P", al.preprocess(db), al.hash_db(db)),
+                ("Q", al.query_transform(db[:37]), al.hash_query(db[:37]))):
+            if variant == "sign":
+                want = ref.simhash_pack_ref(x, al.inner.alpha)
+                chain = ref.simhash_pack_chain_ref(x, al.inner.alpha)
+                near = (x.double() @ al.inner.alpha.double()).abs() < 1e-5
+                bits_ = lambda w: ((w[..., None] >> shifts) & 1).reshape(
+                    w.shape[0], -1)
+                bad = int(((bits_(hashed) != bits_(want)) & ~near).sum())
+                ok = bad == 0 and torch.equal(hashed, chain)
+            else:
+                want, pp = ref.hash_mm_proj_ref(x, al.inner.alpha,
+                                                al.inner.b, al.inner.r)
+                near = (pp - torch.round(pp)).abs() <= 1e-4 + 1e-6 * pp.abs()
+                ok = torch.equal(hashed[~near], want[~near])
+            if not ok:
+                raise AssertionError(f"ALSH {variant} {what} {tuple(x.shape)}"
+                                     ": differs from the plain version")
+            log(f"  ALSH {variant} {what}: {tuple(x.shape)} -> "
+                f"{tuple(hashed.shape)}, equal to the plain version "
+                f"({int(near.sum())} values near a sign or floor boundary)")
 
 
 def check_dct_mm(gen, m, n, d=None, offset=0, quiet=False):
@@ -546,69 +708,73 @@ def stacked_inputs(gen, n_seg, nq, dtype, cap=1024, c=1024, n=64):
             torch.stack([sc for _, sc in segs]), ids, segs)
 
 
-def check_stacked_scorers(gen):
+def check_stacked_scorers(gen, ps=(2.0, 1.0)):
     """K2 and K5 at the stacked launches' shapes (STACK_SEGMENTS segments
-    x 32 and x 128 rows, C 1024, k 10 and 40) against their plain
-    versions: fp32 and bf16 distances rtol 1e-5 atol 1e-6 with ids equal
-    at distinct distances, int8 bit-identical; K5 with one scale per
-    segment, and the first, middle and last segment's block of rows bit
-    for bit equal to that segment's own launch."""
+    x 32 and x 128 rows, C 1024, k 10 and 40) at each p of ``ps`` (p = 1:
+    the l1-qmc tenant's sums of |x - y|, where ties are more frequent)
+    against their plain versions: fp32 and bf16 distances rtol 1e-5 atol
+    1e-6 with ids equal at distinct distances, int8 bit-identical; K5 with
+    one scale per segment, and the first, middle and last segment's block
+    of rows bit for bit equal to that segment's own launch."""
     import torch
     from repro_torch.kernels import fused_query, quantized_query, ref
     worst = {"fused_query": 0.0, "quantized_query": 0.0}
-    for nq in (32, 128):
-        for dtype in (torch.float32, torch.int8, torch.bfloat16):
-            q, db, scale, ids, segs = stacked_inputs(
-                gen, STACK_SEGMENTS, nq, dtype)
-            k = 10 if dtype == torch.float32 else 40
-            plan = fused_query._plan(q.shape[0], 1024, 64,
-                                     db.element_size())
-            tag = (f"stacked {dtype} {STACK_SEGMENTS} x {nq} rows (G "
-                   f"{plan.cluster}, {plan.smem} bytes of shared memory)")
+    for p, nq, dtype in [(p, nq, dt) for p in ps for nq in (32, 128)
+                         for dt in (torch.float32, torch.int8,
+                                    torch.bfloat16)]:
+        q, db, scale, ids, segs = stacked_inputs(
+            gen, STACK_SEGMENTS, nq, dtype)
+        k = 10 if dtype == torch.float32 else 40
+        plan = fused_query._plan(q.shape[0], 1024, 64,
+                                 db.element_size())
+        tag = (f"stacked {dtype} p {p} {STACK_SEGMENTS} x {nq} rows (G "
+               f"{plan.cluster}, {plan.smem} bytes of shared memory)")
+        if segs is None:
+            d, i = fused_query.fused_query_topk(q, db, ids, k, p=p)
+            dp, ip = ref.fused_query_topk_ref(q, db, ids, k, p=p)
+            dfull, _ = ref.fused_query_topk_ref(q, db, ids, 1024, p=p)
+        else:
+            d, i = quantized_query.quantized_query_topk(q, db, scale,
+                                                        ids, k, p=p)
+            dp, ip = ref.quantized_topk_ref(q, db, scale, ids, k, p=p)
+            dfull, _ = ref.quantized_topk_ref(q, db, scale, ids, 1024,
+                                              p=p)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(dp)
+        if dtype == torch.int8:
+            ok = torch.equal(bits(d), bits(dp)) and torch.equal(i, ip)
+        else:
+            tie = ~_distinct(dp, dfull, k) & fin
+            ok = (torch.equal(fin, torch.isfinite(d))
+                  and torch.allclose(d[fin], dp[fin], rtol=1e-5,
+                                     atol=1e-6)
+                  and not bool(((i != ip) & ~tie).sum())
+                  and torch.equal(i[~fin], ip[~fin]))
+        if not ok:
+            raise AssertionError(f"{tag}: differs from the plain version")
+        name = "fused_query" if segs is None else "quantized_query"
+        worst[name] = max(worst[name],
+                          float((d[fin] - dp[fin]).abs().max()))
+        for s_ in sorted({0, STACK_SEGMENTS // 2, STACK_SEGMENTS - 1}):
+            blk = slice(s_ * nq, (s_ + 1) * nq)
+            loc = torch.where(ids[blk] >= 0, ids[blk] - s_ * 1024, -1)
             if segs is None:
-                d, i = fused_query.fused_query_topk(q, db, ids, k)
-                dp, ip = ref.fused_query_topk_ref(q, db, ids, k)
-                dfull, _ = ref.fused_query_topk_ref(q, db, ids, 1024)
+                ds, is_ = fused_query.fused_query_topk(
+                    q[blk].contiguous(), db[s_ * 1024:(s_ + 1) * 1024],
+                    loc.contiguous(), k, p=p)
             else:
-                d, i = quantized_query.quantized_query_topk(q, db, scale,
-                                                            ids, k)
-                dp, ip = ref.quantized_topk_ref(q, db, scale, ids, k)
-                dfull, _ = ref.quantized_topk_ref(q, db, scale, ids, 1024)
-            torch.cuda.synchronize()
-            fin = torch.isfinite(dp)
-            if dtype == torch.int8:
-                ok = torch.equal(bits(d), bits(dp)) and torch.equal(i, ip)
-            else:
-                tie = ~_distinct(dp, dfull, k) & fin
-                ok = (torch.equal(fin, torch.isfinite(d))
-                      and torch.allclose(d[fin], dp[fin], rtol=1e-5,
-                                         atol=1e-6)
-                      and not bool(((i != ip) & ~tie).sum())
-                      and torch.equal(i[~fin], ip[~fin]))
-            if not ok:
-                raise AssertionError(f"{tag}: differs from the plain version")
-            name = "fused_query" if segs is None else "quantized_query"
-            worst[name] = max(worst[name],
-                              float((d[fin] - dp[fin]).abs().max()))
-            for s_ in sorted({0, STACK_SEGMENTS // 2, STACK_SEGMENTS - 1}):
-                blk = slice(s_ * nq, (s_ + 1) * nq)
-                loc = torch.where(ids[blk] >= 0, ids[blk] - s_ * 1024, -1)
-                if segs is None:
-                    ds, is_ = fused_query.fused_query_topk(
-                        q[blk].contiguous(), db[s_ * 1024:(s_ + 1) * 1024],
-                        loc.contiguous(), k)
-                else:
-                    ds, is_ = quantized_query.quantized_query_topk(
-                        q[blk].contiguous(), *segs[s_], loc.contiguous(), k)
-                if not (torch.equal(bits(d[blk]), bits(ds)) and torch.equal(
-                        i[blk], torch.where(is_ >= 0, is_ + s_ * 1024, -1))):
-                    raise AssertionError(f"{tag}: segment {s_}'s rows differ "
-                                         "from its own launch")
-            log(f"  {tag}: ok against the plain version, segments 0, "
-                f"{STACK_SEGMENTS // 2} and {STACK_SEGMENTS - 1} bit-equal "
-                "to their own launches")
-            del q, db, scale, ids, segs, dfull
-            torch.cuda.empty_cache()
+                ds, is_ = quantized_query.quantized_query_topk(
+                    q[blk].contiguous(), *segs[s_], loc.contiguous(), k,
+                    p=p)
+            if not (torch.equal(bits(d[blk]), bits(ds)) and torch.equal(
+                    i[blk], torch.where(is_ >= 0, is_ + s_ * 1024, -1))):
+                raise AssertionError(f"{tag}: segment {s_}'s rows differ "
+                                     "from its own launch")
+        log(f"  {tag}: ok against the plain version, segments 0, "
+            f"{STACK_SEGMENTS // 2} and {STACK_SEGMENTS - 1} bit-equal "
+            "to their own launches")
+        del q, db, scale, ids, segs, dfull
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -921,29 +1087,76 @@ def check_merge_select(gen):
 # -- phase 4: CPU vs card parity ----------------------------------------------
 
 
-def parity_run():
+def has_tenants() -> bool:
+    """Does this checkout serve the l1-qmc and w2-quantile tenants (an
+    earlier one has l2-basis only)?"""
+    from repro_torch.launch import serve
+    return hasattr(serve, "default_specs")
+
+
+def tenant_spec(name="l2-basis", precision="fp32"):
+    """The demo's spec of tenant ``name``."""
+    from repro_torch.launch import serve
+    if name == "l2-basis" and not has_tenants():
+        return serve.default_spec(precision=precision)
+    return {sp.name: sp for sp in serve.default_specs(
+        precision=precision)}[name]
+
+
+def probe_inputs(sv, rng, n):
+    """n fresh inputs for ``sv.embed``: the tenant's own ingest (raw
+    Gaussian draws for the Wasserstein tenant, three-sine functions at
+    the nodes otherwise; the same draws as ``sample_fvals`` for a function
+    tenant)."""
+    from repro_torch.launch import serve
+    if hasattr(serve, "sample_inputs"):
+        return serve.sample_inputs(sv, rng, n)[0]
+    return serve.sample_fvals(rng, sv.nodes(), n)
+
+
+def near_boundary(p):
+    """Projections that may floor either way in another summation order:
+    |p - round(p)| <= 1e-4 + 1e-6 |p| (relative: a heavy-tailed alpha's
+    projections reach 1e4, where an f32 ulp passes 1e-4)."""
+    import torch
+    return (p - torch.round(p)).abs() <= 1e-4 + 1e-6 * p.abs()
+
+
+def parity_family(cfg, rng):
+    """One numpy-drawn family for both devices: alpha normal at p = 2,
+    Cauchy at p = 1."""
+    L, K = cfg.n_tables, cfg.n_hashes
+    shape = (cfg.n_dims, L * K)
+    alpha = (rng.normal(size=shape) if cfg.p == 2.0
+             else rng.standard_cauchy(size=shape))
+    return (alpha.astype(np.float32),
+            rng.uniform(size=(L * K,)).astype(np.float32),
+            (rng.integers(0, 2 ** 31 - 1, size=(L, K)) | 1).astype(np.uint32))
+
+
+def parity_run(name="l2-basis"):
+    """Tenant ``name``'s pipeline at PARITY_ITEMS items on the CPU (plain
+    versions) and on the card (kernels) with one injected family: rows
+    whose gids differ must be explained by a boundary or a tie, equal ids
+    must have close distances, and recall within 0.01.  Returns, for
+    the function tenants, the card's K2 inputs of a 32- and a 128-row
+    batch against a full sealed segment (the timings' real inputs)."""
     import torch
     from repro_torch import convert
     from repro_torch.core import index as lidx
     from repro_torch.kernels import ref
-    from repro_torch.launch.serve import default_spec, sample_fvals
     from repro_torch.serve import Servable, recall_proxy
 
-    spec = default_spec()
+    spec = tenant_spec(name)
     cfg = spec.index_config()
-    rng = np.random.default_rng(1234)
-    L, K = cfg.n_tables, cfg.n_hashes
-    fam = (rng.normal(size=(cfg.n_dims, L * K)).astype(np.float32),
-           rng.uniform(size=(L * K,)).astype(np.float32),
-           (rng.integers(0, 2 ** 31 - 1, size=(L, K)) | 1).astype(np.uint32))
+    fam = parity_family(cfg, np.random.default_rng(1234))
     out = {}
     for dev in ("cpu", "cuda"):
         sv = Servable(spec, device=dev,
                       family=convert.family_from_numpy(*fam, device=dev))
-        nodes = sv.nodes()
         drng = np.random.default_rng(99)
-        fvals = sample_fvals(drng, nodes, PARITY_ITEMS)
-        qf = sample_fvals(drng, nodes, 64)
+        fvals = probe_inputs(sv, drng, PARITY_ITEMS)
+        qf = probe_inputs(sv, drng, 64)
         emb = sv.embed(fvals)
         gids = sv.insert(emb)
         sv.delete(gids[::17])
@@ -957,7 +1170,7 @@ def parity_run():
             fam[0]), torch.as_tensor(fam[1]), cfg.r)
         _, proj_q = ref.hash_mm_proj_ref(torch.as_tensor(q), torch.as_tensor(
             fam[0]), torch.as_tensor(fam[1]), cfg.r)
-        out[dev] = dict(g=g, d=d, recall=rec, gids=gids,
+        out[dev] = dict(g=g, d=d, recall=rec, gids=gids, emb=emb.cpu(),
                         proj_items=proj_items, proj_q=proj_q,
                         segments=len(sv.index.segments))
         if dev == "cuda":
@@ -965,8 +1178,7 @@ def parity_run():
             # 32-row micro-batch (the profiled batch) and of a 128-row one
             # (the serve loop's chunk) against a full sealed segment
             seg = sv.index.segments[0]
-            q128 = sv.embed(sample_fvals(np.random.default_rng(7), nodes,
-                                         128))
+            q128 = sv.embed(probe_inputs(sv, np.random.default_rng(7), 128))
             out["k2_inputs"] = {}
             for rows, qq in ((32, torch.as_tensor(q[:32], device=q128.device)),
                              (128, q128)):
@@ -978,7 +1190,8 @@ def parity_run():
                 out["k2_inputs"][rows] = (qq.contiguous(), seg.state.db,
                                           cands.contiguous())
     cpu, gpu = out["cpu"], out["cuda"]
-    near = lambda p: ((p - torch.round(p)).abs() < 1e-4).any(dim=-1)
+    emb_equal = torch.equal(cpu["emb"], gpu["emb"])
+    near = lambda p: near_boundary(p).any(dim=-1)
     boundary_gids = set(cpu["gids"][near(cpu["proj_items"]).numpy()]
                         .tolist()) | set(
         gpu["gids"][near(gpu["proj_items"]).numpy()].tolist())
@@ -995,17 +1208,24 @@ def parity_run():
             why["tie"] += 1
         else:
             raise AssertionError(
-                f"parity: query {r} differs without a boundary or tie: "
-                f"cpu {cpu['g'][r]} / cuda {gpu['g'][r]}")
+                f"parity ({name}): query {r} differs without a boundary or "
+                f"tie: cpu {cpu['g'][r]} / cuda {gpu['g'][r]}")
     fin = np.isfinite(cpu["d"]) & (cpu["g"] == gpu["g"])
     if not np.allclose(cpu["d"][fin], gpu["d"][fin], rtol=1e-5, atol=1e-6):
-        raise AssertionError("parity: distances of equal ids differ")
+        raise AssertionError(f"parity ({name}): distances of equal ids "
+                             "differ")
     if abs(cpu["recall"] - gpu["recall"]) > 0.01:
-        raise AssertionError(f"parity: recall cpu {cpu['recall']} vs cuda "
-                             f"{gpu['recall']}")
-    log(f"  parity at {PARITY_ITEMS} items ({gpu['segments']} segments), "
-        f"64 queries: {len(mism)} rows differ {why}; recall@10 cpu "
-        f"{cpu['recall']:.4f} cuda {gpu['recall']:.4f}")
+        raise AssertionError(f"parity ({name}): recall cpu {cpu['recall']} "
+                             f"vs cuda {gpu['recall']}")
+    n_bound = int(near_boundary(gpu["proj_items"]).sum())
+    log(f"  parity {name} (p {cfg.p}) at {PARITY_ITEMS} items "
+        f"({gpu['segments']} segments), 64 queries: {len(mism)} rows differ "
+        f"{why}; {n_bound} item projections near a boundary; embeddings "
+        f"{'bit-equal' if emb_equal else 'not bit-equal'} across devices; "
+        f"recall@10 cpu {cpu['recall']:.4f} cuda {gpu['recall']:.4f}")
+    if spec.embedder != "basis" and not emb_equal:
+        raise AssertionError(f"parity ({name}): the {spec.embedder} embed "
+                             "differs between the CPU and the card")
     return out["k2_inputs"]
 
 
@@ -1145,10 +1365,11 @@ FEW = dict(warmup=1, reps=3, replays=3)  # plain and library calls that
                                          # materialise gigabytes
 
 
-def _k2_record(q, db, cands, kk, big=False):
-    """K2 at one shape; ``big``: a stacked launch, whose plain version and
-    library call materialise (rows, C, 64) floats -- timed with FEW calls,
-    and the library call's host times left out."""
+def _k2_record(q, db, cands, kk, big=False, p=2.0):
+    """K2 at one shape and metric (p 2 or 1); ``big``: a stacked launch,
+    whose plain version and library call materialise (rows, C, 64) floats
+    -- timed with FEW calls, and the library call's host times left
+    out."""
     import torch
     from repro_torch.kernels import fused_query, ref
     nq, c = cands.shape
@@ -1159,17 +1380,20 @@ def _k2_record(q, db, cands, kk, big=False):
 
     def lib_fused():
         emb = db[cands.clamp(min=0).long()]
-        dist = torch.linalg.vector_norm(emb - q[:, None, :], dim=-1)
+        dist = torch.linalg.vector_norm(emb - q[:, None, :], ord=p, dim=-1)
         dist = torch.where(cands < 0, torch.inf, dist)
         return torch.topk(dist, kk, largest=False)
+    kw = {} if p == 2.0 else {"p": p}
     return dict(
         shape=f"q ({nq}, 64), db {tuple(db.shape)}, ids ({nq}, {c}), "
-              f"k={kk}; {n_valid} valid candidates, {rows_needed} rows",
-        ms=time_ms(lambda: fused_query.fused_query_topk(q, db, cands, kk)),
-        **host_times(lambda: fused_query.fused_query_topk(q, db, cands,
-                                                          kk)),
-        plain_ms=time_ms(lambda: ref.fused_query_topk_ref(q, db, cands, kk),
-                         **few),
+              f"k={kk}, p={p}; {n_valid} valid candidates, {rows_needed} "
+              "rows",
+        ms=time_ms(lambda: fused_query.fused_query_topk(q, db, cands, kk,
+                                                        **kw)),
+        **host_times(lambda: fused_query.fused_query_topk(q, db, cands, kk,
+                                                          **kw)),
+        plain_ms=time_ms(lambda: ref.fused_query_topk_ref(q, db, cands, kk,
+                                                          **kw), **few),
         library_ms=time_ms(lib_fused, **few),
         **({} if big else host_times(lib_fused, "library_")),
         bytes=4 * (nq * 64 + nq * c + rows_needed * 64 + 2 * nq * kk),
@@ -1199,7 +1423,8 @@ def _k5_record(qq, codes, scale, qids, kq, kw, big=False):
     def lib_quantized():
         qc = torch.round(qq / srow)
         rows = codes[qids.clamp(min=0).long()].float()
-        dist = torch.linalg.vector_norm(rows - qc[:, None, :], dim=-1)
+        dist = torch.linalg.vector_norm(rows - qc[:, None, :],
+                                        ord=kw.get("p", 2.0), dim=-1)
         dist = torch.where(qids < 0, torch.inf, dist)
         dv, iv = torch.topk(dist, kq, largest=False)
         return dv * srow, iv
@@ -1300,7 +1525,8 @@ def _k3_record(d, i, n_out):
     return rec
 
 
-def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn):
+def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn,
+            k2_p1_inputs=None):
     import torch
     from repro_torch.embedders.basis import cheb_kernel_constants
     from repro_torch.kernels import (dct_mm, hash_mm, ops, ref, rerank,
@@ -1356,6 +1582,12 @@ def timings(gen, k2_inputs, k5_inputs, k6_inputs, errs, floor_fn):
             _k2_record(q, db, cands, kk)
         rec[f"fused_query@{rows * STACK_SEGMENTS}"] = _k2_record(
             *_stacked(q, db, cands, STACK_SEGMENTS), kk, big=True)
+    # and at p = 1: the l1-qmc tenant's 32-row batch (Cauchy family, QMC
+    # embedding) tiled over STACK_SEGMENTS segments
+    if k2_p1_inputs is not None:
+        q, db, cands = k2_p1_inputs[32]
+        rec[f"fused_query@{32 * STACK_SEGMENTS}_p1"] = _k2_record(
+            *_stacked(q, db, cands, STACK_SEGMENTS), kk, big=True, p=1.0)
 
     # K3 at the fp32 fan-in (257 segments x k = 10, a 32-row batch)
     rec["merge"] = _k3_record(*_fan_in(gen, 32, 257, kk), kk)
@@ -1459,9 +1691,8 @@ def profile_batches(sv, n_batches=2, rows=32):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import dispatch
-    from repro_torch.launch.serve import sample_fvals
     rng = np.random.default_rng(5)
-    q = sv.embed(sample_fvals(rng, sv.nodes(), rows)).cpu().numpy()
+    q = sv.embed(probe_inputs(sv, rng, rows)).cpu().numpy()
     sv.index.query(q, 10, 4)[0].cpu()
     # the int8 tier's host survivor gather, timed on the host clock
     gather_s, gather_in = [], []
@@ -1564,9 +1795,11 @@ def drive(fn, card, smi, path, what):
     out = fn()
     torch.cuda.synchronize()
     counts = dict(dispatch.launches)
-    if isinstance(out, dict) and "qps" in out:
-        log(f"  [{card}, {smi.split(',')[-1].strip()}] " + json.dumps(
-            {k: out[k] for k in (
+    reports = (out if isinstance(out, dict) and all(
+        isinstance(v, dict) and "qps" in v for v in out.values()) else {})
+    for name, rep in reports.items():
+        log(f"  [{card}, {smi.split(',')[-1].strip()}] {name} " + json.dumps(
+            {k: rep[k] for k in (
                 "ingest_rows_per_s", "qps", "p50_ms", "p95_ms",
                 "recall_at_k", "self_hit_rate", "held_frac", "n_segments",
                 "n_live", "store_bytes_per_item", "rerank_survivor_frac",
@@ -1594,9 +1827,8 @@ def compare_tiers(sv32, sv8, when, n_probe=64, k=10):
     """Both tenants hold the same items (one seed); the same 64 probes
     through each: recall@10 of the int8 answer against the fp32 answer,
     and the sealed store's bytes per item."""
-    from repro_torch.launch.serve import sample_fvals
     rng = np.random.default_rng(2024)
-    probes = sv32.embed(sample_fvals(rng, sv32.nodes(), n_probe)).cpu()
+    probes = sv32.embed(probe_inputs(sv32, rng, n_probe)).cpu()
     probes = probes.numpy()
     g32, _ = sv32.query(probes, k, 4)
     g8, _ = sv8.query(probes, k, 4)
@@ -1650,13 +1882,12 @@ def stacked_parity(sv, prof, tier, n_probe=64):
     batches, and one 128-row batch of those and ``n_probe`` more.  Then
     the profile's launches: K1 once a batch, K2 + K5 at most twice.  A
     checkout without the stacked engine (an earlier commit) skips both."""
-    from repro_torch.launch.serve import sample_fvals
     idx = sv.index
     if not hasattr(idx, "_query_fanout"):
         log(f"  stacked parity ({tier}): no stacked engine in this checkout")
         return
     rng = np.random.default_rng(31)
-    probes = sv.embed(sample_fvals(rng, sv.nodes(), 2 * n_probe)).cpu()
+    probes = sv.embed(probe_inputs(sv, rng, 2 * n_probe)).cpu()
     fanout_equal(idx, probes.numpy(), n_probe, tier)
     per = prof["launches_per_batch"]
     if per["hash_mm"] != 1 or per["fused_query"] + per[
@@ -1694,7 +1925,8 @@ def batch_rate(secs, rows=32) -> dict:
 
 def stacked_scorer_record(idx, b):
     """K2 (fp32) or K5 (int8) at the stacked launch that one query of
-    ``b`` through ``idx`` makes, on the inputs that launch got: card,
+    ``b`` through ``idx`` makes, on the inputs that launch got (its p
+    too): card,
     plain and library times and the bound, as phase 5's records.  The
     launches made to time it are taken back out of the counts."""
     from repro_torch.kernels import dispatch, ops
@@ -1713,7 +1945,7 @@ def stacked_scorer_record(idx, b):
     a, kw = max(seen, key=lambda s: s[0][0].shape[0])   # the most rows
     counts = dict(dispatch.launches)
     if idx.precision == "fp32":
-        t = _k2_record(*a, big=True)
+        t = _k2_record(*a, big=True, p=kw.get("p", 2.0))
     else:
         t = _k5_record(*a, kw, big=True)
     for k, v in counts.items():          # (Counter.update would add)
@@ -1896,30 +2128,50 @@ def simhash_path(sv, batch=SIMHASH_BATCH, bits_=SIMHASH_BITS):
     return sig
 
 
-def run_paths(card, smi):
-    """Phases 6-8: the fp32 main path, the int8 path beside it (each with
-    two profiled batches), the simhash path and the compaction of both
-    tenants; the launch counts of the runs summed, and the profiles and
-    reports."""
+def serve_run(tenants, **kw):
+    """``launch.serve.run`` of ``tenants``, its report per tenant (a
+    checkout before the three tenants serves l2-basis alone and reports
+    it flat)."""
+    import inspect
+
     from repro_torch.launch import serve
+    if "tenants" in inspect.signature(serve.run).parameters:
+        return serve.run(tenants=tenants, **kw)
+    if tuple(tenants) != ("l2-basis",):
+        raise AssertionError(f"this checkout serves l2-basis only, not "
+                             f"{tenants}")
+    return {"l2-basis": serve.run(**kw)}
+
+
+def run_paths(card, smi):
+    """Phases 6-9: the fp32 main path, the int8 path beside it (each with
+    two profiled batches), the simhash path, the compaction of both
+    tenants, then the l1-qmc and w2-quantile tenants; the launch counts of
+    the runs summed, and the profiles and reports."""
+    import gc
+
+    import torch
+
     from repro_torch.serve import ServableRegistry
-    log(f"[6/8] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/9] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
-    counts, report = drive(lambda: serve.run(
-        registry=registry, n_items=MAIN_ITEMS, steps=MAIN_STEPS, log=log),
-        card, smi, FP32_PATH, "main path")
+    counts, report = drive(lambda: serve_run(
+        ("l2-basis",), registry=registry, n_items=MAIN_ITEMS,
+        steps=MAIN_STEPS, log=log), card, smi, FP32_PATH, "main path")
+    report = report["l2-basis"]
     prof = profile_batches(registry.get("l2-basis"))
     check_report(report, "fp32")
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
 
-    log(f"[7/8] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/9] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
-    counts8, report8 = drive(lambda: serve.run(
-        registry=reg8, n_items=MAIN_ITEMS, steps=MAIN_STEPS,
+    counts8, report8 = drive(lambda: serve_run(
+        ("l2-basis",), registry=reg8, n_items=MAIN_ITEMS, steps=MAIN_STEPS,
         precision="int8", log=log), card, smi, INT8_PATH, "int8 path")
+    report8 = report8["l2-basis"]
     prof8 = profile_batches(reg8.get("l2-basis"))
     check_report(report8, "int8")
     stacked_parity(reg8.get("l2-basis"), prof8, "int8")
@@ -1928,7 +2180,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/8] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/9] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -1944,13 +2196,154 @@ def run_paths(card, smi):
     compare_tiers(sv32, sv8, "compacted")
     keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
             "self_hit_rate")
-    counts_all = {name: counts[name] + counts8[name] + counts7[name]
-                  + counts_c[name] + counts_c8[name] for name in counts}
-    return counts_all, {
+    paths = {
         "fp32": {"profile": prof, **{k: report[k] for k in keep},
                  "compaction": comp},
         "int8": {"profile": prof8, **{k: report8[k] for k in keep},
                  "compaction": comp8}}
+    runs = [counts, counts8, counts7, counts_c, counts_c8]
+    # phase 9 holds two more 262,144-item tenants: let phases 6-8's go
+    del registry, reg8, sv32, sv8
+    gc.collect()
+    torch.cuda.empty_cache()
+    if has_tenants():
+        counts9, paths["tenants"] = tenants_phase(card, smi)
+        runs += counts9
+    else:
+        log("[9/9] tenants: this checkout serves l2-basis only")
+    counts_all = {name: sum(c[name] for c in runs) for name in counts}
+    return counts_all, paths
+
+
+# -- phase 9: the l1-qmc and w2-quantile tenants -----------------------------
+
+
+TENANT_PATH = ("hash_mm", "fused_query", "merge")   # no K4: no basis embed
+W2_PROBES = 64
+
+
+def w2_tenant_oracle(sv, params, n_probe=W2_PROBES, k=10):
+    """The W^2 tenant's recall@10 against the closed-form W2 over its live
+    items: ``n_probe`` fresh Gaussians (their 256 raw draws embedded and
+    queried; their (mu, sigma) for the oracle), ``params`` the (mu, sigma)
+    of every inserted gid."""
+    from repro_torch.core.wasserstein import gaussian_w2
+    from repro_torch.launch.serve import sample_gaussian_draws
+    rng = np.random.default_rng(2026)
+    draws, qmu, qsig = sample_gaussian_draws(rng, n_probe)
+    g, _ = sv.query(sv.embed(draws).cpu().numpy(), k, 4)
+    live = sv.index.live_items()[1].cpu().numpy()
+    mu, sig = params[0][live], params[1][live]
+    w2 = gaussian_w2(qmu[:, None].astype(np.float32),
+                     qsig[:, None].astype(np.float32),
+                     mu[None, :], sig[None, :]).numpy()
+    exact = live[np.argsort(w2, axis=1, kind="stable")[:, :k]]
+    return float(np.mean([len(set(a[a >= 0]) & set(b)) / k
+                          for a, b in zip(g, exact)]))
+
+
+def w2_embed_record(sv, rows=128):
+    """The Wasserstein embed (``sort`` + gather + scale on the card, no
+    kernel of ours) per ``rows``-row chunk of 256 raw draws: card time
+    (CUDA graph), host time, and the bytes that bound it."""
+    import torch
+    from repro_torch.launch.serve import W2_DRAWS, sample_gaussian_draws
+    x = torch.as_tensor(sample_gaussian_draws(np.random.default_rng(3),
+                                              rows)[0],
+                        dtype=torch.float32, device="cuda")
+    emb = sv.embedder
+    nbytes = 4 * (rows * W2_DRAWS + emb.n_dims + rows * emb.n_dims)
+    bms, by = bound_ms(nbytes, 0)
+    return {"shape": f"({rows}, {W2_DRAWS}) draws -> ({rows}, "
+                     f"{emb.n_dims})",
+            "ms": time_ms(lambda: emb.embed(x)),
+            **host_times(lambda: emb.embed(x)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def tenants_phase(card, smi):
+    """Phase 9: ``launch.serve.run`` over l1-qmc and w2-quantile at
+    MAIN_ITEMS items and MAIN_STEPS steps at fp32, then l1-qmc at int8;
+    per tenant two profiled 32-row batches, the stacked query bit-equal to
+    the fan-out, self-hit >= 0.95, the held share and recall@10; int8 vs
+    fp32 recall >= 0.98 at <= 1/3 the bytes; the W2 oracle gate (the
+    bench's full config) >= 0.9 and the big tenant's recall against the
+    oracle; the Wasserstein embed's time per 128-row chunk."""
+    from repro_torch.launch import w2_gate
+    from repro_torch.serve import ServableRegistry
+    names = ("l1-qmc", "w2-quantile")
+    log(f"[9/9] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+        f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
+        "int8")
+    params = {"mu": np.zeros(0), "sig": np.zeros(0)}
+
+    def keep_params(name, gids, p):
+        if p is None:
+            return
+        end = int(gids.max()) + 1
+        for key, v in zip(("mu", "sig"), p):
+            if params[key].size < end:
+                params[key] = np.resize(params[key], end)
+            params[key][gids] = v.astype(np.float32)
+    registry = ServableRegistry(device="cuda")
+    counts, report = drive(lambda: serve_run(
+        names, registry=registry, n_items=MAIN_ITEMS, steps=MAIN_STEPS,
+        on_insert=keep_params, log=log), card, smi, TENANT_PATH,
+        "tenants' path")
+    reg8 = ServableRegistry(device="cuda")
+    counts8, report8 = drive(lambda: serve_run(
+        ("l1-qmc",), registry=reg8, n_items=MAIN_ITEMS, steps=MAIN_STEPS,
+        precision="int8", log=log), card, smi,
+        TENANT_PATH + ("quantized_query", "rerank"), "l1-qmc int8 path")
+    for c, what in ((counts, "fp32"), (counts8, "int8")):
+        if c["dct_mm"]:
+            raise AssertionError(f"K4 launched {c['dct_mm']} times on the "
+                                 f"{what} tenants, which embed without it")
+    out = {}
+    for name, reg, run_rep, tier in (
+            ("l1-qmc", registry, report, "fp32"),
+            ("w2-quantile", registry, report, "fp32"),
+            ("l1-qmc", reg8, report8, "int8")):
+        sv, rep = reg.get(name), run_rep[name]
+        prof = profile_batches(sv)
+        check_report(rep, f"{name} {tier}")
+        stacked_parity(sv, prof, f"{name} {tier}")
+        batch = sv.embed(probe_inputs(sv, np.random.default_rng(41), 32))
+        scorer = stacked_scorer_record(sv.index, batch.cpu().numpy())
+        log(f"  stacked scorer ({name} {tier}, p {sv.spec.p}) "
+            + json.dumps(scorer))
+        # A tenant's qps spans its first query to its report(), and the
+        # fp32 run interleaves both tenants step by step, so that window
+        # holds the other tenant's work too; the loop's rate, query rows of
+        # every tenant of the run over the loop's wall, does not.
+        loop_rate = (sum(r["query_rows"] for r in run_rep.values())
+                     / rep["loop_s"])
+        out[f"{name} {tier}"] = {
+            "profile": prof, "stacked_scorer": scorer,
+            "run_tenants": sorted(run_rep),
+            "loop_query_rows_per_s": loop_rate, **{k: rep[k] for k in (
+                "ingest_rows_per_s", "qps", "p50_ms", "p95_ms",
+                "recall_at_k", "self_hit_rate", "held_frac", "n_segments",
+                "n_live", "store_bytes_per_item", "max_memory_allocated")}}
+    compare_tiers(registry.get("l1-qmc"), reg8.get("l1-qmc"), "l1-qmc")
+    gate = w2_gate.run(device="cuda")
+    log("  w2 oracle gate " + json.dumps(gate))
+    if gate["best_recall_at_10"] < w2_gate.MIN_RECALL:
+        raise AssertionError(f"W2 oracle gate: best recall@10 "
+                             f"{gate['best_recall_at_10']} < "
+                             f"{w2_gate.MIN_RECALL}")
+    sv_w2 = registry.get("w2-quantile")
+    oracle = w2_tenant_oracle(sv_w2, (params["mu"], params["sig"]))
+    embed = w2_embed_record(sv_w2)
+    res = {"w2_gate": gate, "w2_tenant_recall_at_10_vs_oracle": oracle,
+           "w2_embed_per_128_rows": embed}
+    log(f"  [{card}, {smi.split(',')[-1].strip()}] tenants " + json.dumps(
+        {**{k: {kk: v[kk] for kk in ("recall_at_k", "self_hit_rate",
+                                     "held_frac", "qps",
+                                     "loop_query_rows_per_s", "p50_ms")}
+            for k, v in out.items()}, **res}))
+    out.update(res)
+    return [counts, counts8], out
 
 
 # -- main ---------------------------------------------------------------------
@@ -1965,9 +2358,11 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2, 6 and 7 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-9 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
-                    "then one JSON line of profiles and reports; to profile "
+                    "the compactions and the l1-qmc and w2-quantile "
+                    "tenants, then one JSON line of profiles and reports; "
+                    "to profile "
                     "another checkout, copy this script to its root")
     args = ap.parse_args(argv)
     import torch
@@ -1981,14 +2376,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/8] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/9] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/8] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/9] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -2002,25 +2397,31 @@ def main(argv=None) -> int:
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/8] CPU (plain versions) vs card (kernels) parity")
+        log("[4/9] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
-        log(f"[5/8] timings, {smi}")
+        k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
+        log(f"[5/9] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
-                      floor_fn)
+                      floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/8] kernel checks against the plain versions on the card: "
+    log("[3/9] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
-        "|proj - round(proj)| > 1e-4, bit-equal across batch sizes; dct_mm "
+        "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
+        "saturated / infinite / NaN projections bit-equal, and with a "
+        "lazily grown p = 1.5 alpha and a p = 0.5 alpha equal where "
+        "|proj - round(proj)| > 1e-4 + 1e-6 (|x| @ |alpha| / r + |b|); "
+        "dct_mm "
         "rtol 1e-5 atol 1e-5, bit-equal across batch sizes; "
         "fused_query distances rtol 1e-5 atol 1e-6 and ids equal at "
         "distinct distances; merge bit-identical (signs of zero included, "
         "as values only where a row pairs one id with both signs); "
         "quantized_query int8 at p in {1, 2} bit-identical, else as "
         "fused_query, and with one scale per segment of a stacked launch; "
-        "each stacked launch's segments bit-equal to their own launches; "
+        "each stacked launch's segments bit-equal to their own launches, "
+        "at p = 2 and p = 1; "
         "rerank rtol 1e-5 atol 1e-6; "
         "simhash_pack bits equal where |proj| >= 1e-5 and bit-identical to "
         "its fmaf chain")
@@ -2030,6 +2431,12 @@ def main(argv=None) -> int:
     check_hash_mm(gen, 33, 50, 17)
     check_hash_mm(gen, 1, 64, 32)
     check_hash_mm(gen, 300, 96, 40, r=1.0)
+    # the saturating conversion and ALSH draw from their own generator, so
+    # the checks after them keep their inputs
+    gen19 = torch.Generator().manual_seed(19)
+    check_hash_saturation(gen19)
+    check_alsh(gen19)
+    check_general_p_families(gen19)
     errs["dct_mm"] = check_dct_mm(gen, 128, 64)
     check_dct_mm(gen, 5, 64)
     check_dct_mm(gen, 130, 33)
@@ -2120,14 +2527,18 @@ def main(argv=None) -> int:
                                check_simhash_shapes(gen16))
     check_simhash_batch_invariance(gen16)
 
-    log("[4/8] CPU (plain versions) vs card (kernels) parity")
+    log("[4/9] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
+    k2_p1_inputs = None
+    if has_tenants():
+        k2_p1_inputs = parity_run("l1-qmc")
+        parity_run("w2-quantile")
 
-    log("[5/8] timings (median of CUDA events over "
+    log("[5/9] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
-                  floor_fn)
+                  floor_fn, k2_p1_inputs)
 
     counts, _ = run_paths(card, smi)
 

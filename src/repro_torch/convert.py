@@ -2,9 +2,11 @@
 
 Tests hand the JAX package's family, built tables and sealed segments to
 the port with ``np.asarray`` of each leaf, so that both packages compute the
-same thing.  Nothing here imports jax: the arrays arrive as numpy.  A bf16
-array arrives as numpy's ``bfloat16`` (the ml_dtypes type), which torch
-cannot take; it crosses as its uint16 bits and is viewed as bf16 again.
+same thing.  The same goes for what torch cannot redraw: a QMC embedder's
+``"mc"`` nodes, a ``LazyCoeffs``' blocks and an ALSH's inner family.
+Nothing here imports jax: the arrays arrive as numpy.  A bf16 array
+arrives as numpy's ``bfloat16`` (the ml_dtypes type), which torch cannot
+take; it crosses as its uint16 bits and is viewed as bf16 again.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.hashes import SimHash
+from .core.hashes import (ALSH, LazyCoeffs, LazyPStableHash, PStableHash,
+                          SimHash)
 from .core.index import Family, LSHIndexState
 from .kernels import dispatch
 from .serve.segments import Segment
@@ -86,3 +89,52 @@ def basis_constants_from_numpy(pre, mat, scale, device=None):
     tensors, ready for ``BasisEmbedder.set_constants``."""
     dev = dispatch.resolve_device(device)
     return tuple(_tensor(t, torch.float32, dev) for t in (pre, mat, scale))
+
+
+def qmc_nodes_from_numpy(embedder, nodes):
+    """Install ``nodes`` (N,), e.g. a JAX ``QMCEmbedder``'s ``"mc"`` node
+    set, as the port's ``QMCEmbedder``'s f32 node set; returns the
+    embedder."""
+    nodes = np.asarray(nodes, dtype=np.float32).reshape(-1)
+    if nodes.shape != (embedder.n_dims,):
+        raise ValueError(f"want {embedder.n_dims} nodes, got {nodes.shape}")
+    embedder._nodes = nodes
+    return embedder
+
+
+def lazy_coeffs_from_numpy(blocks, seed: int, p: float = 2.0, device=None
+                           ) -> LazyCoeffs:
+    """A JAX ``LazyCoeffs``' blocks (each (128, K)) -> the port's
+    ``LazyCoeffs`` holding them as its first blocks; blocks past them are
+    the port's own draws from ``seed``."""
+    blocks = [np.array(blk, dtype=np.float32) for blk in blocks]
+    coeffs = LazyCoeffs(seed, blocks[0].shape[1], p,
+                        device=dispatch.resolve_device(device))
+    coeffs._blocks = blocks
+    return coeffs
+
+
+def lazy_hash_from_numpy(blocks, b, r: float, seed: int = 0, p: float = 2.0,
+                         device=None) -> LazyPStableHash:
+    """A JAX ``LazyPStableHash`` (its coefficient blocks, b and r) -> the
+    port's."""
+    dev = dispatch.resolve_device(device)
+    return LazyPStableHash(
+        coeffs=lazy_coeffs_from_numpy(blocks, seed, p, device=dev),
+        b=_tensor(b, torch.float32, dev), r=float(r))
+
+
+def alsh_from_numpy(m: int, scale_u: float, variant: str, alpha, b=None,
+                    r: float = 1.0, device=None) -> ALSH:
+    """A JAX ``ALSH`` -> the port's: its inner family's alpha (N + m, K),
+    and for ``"l2"`` its b (K,) and r."""
+    dev = dispatch.resolve_device(device)
+    if variant == "l2":
+        inner = PStableHash(alpha=_tensor(alpha, torch.float32, dev),
+                            b=_tensor(b, torch.float32, dev), r=float(r))
+    elif variant == "sign":
+        inner = simhash_from_numpy(alpha, device=dev)
+    else:
+        raise ValueError(variant)
+    return ALSH(m=int(m), scale_u=float(scale_u), inner=inner,
+                variant=variant)

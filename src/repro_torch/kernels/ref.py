@@ -16,17 +16,34 @@ from __future__ import annotations
 import torch
 
 SENTINEL_ID = torch.iinfo(torch.int32).max
+INT32_MIN = torch.iinfo(torch.int32).min
 
 
 # -- K1 hash_mm, K4 dct_mm ----------------------------------------------------
 
 
+def floor_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """``floor(x)`` as int32, saturating as the card's ``cvt.rzi.s32.f32``
+    and JAX's ``astype(int32)`` do: >= 2^31 and +inf give INT32_MAX, < -2^31
+    and -inf give INT32_MIN, NaN gives 0.  (``.to(torch.int32)`` gives
+    INT32_MIN for all five on the CPU; 2^31 - 1 is not an f32, so a float
+    clamp cannot reach INT32_MAX: the limits are selected on the float.)"""
+    f = torch.floor(x)
+    lim = 2.0 ** 31
+    inside = (f >= -lim) & (f < lim)          # False for NaN and +-inf
+    h = torch.where(inside, f, 0.0).to(torch.int32)
+    h = torch.where(f >= lim, SENTINEL_ID, h)
+    return torch.where(f < -lim, INT32_MIN, h)
+
+
 def hash_mm_proj_ref(x: torch.Tensor, alpha: torch.Tensor, b: torch.Tensor,
                      r: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(floor hashes int32, pre-floor projections f32) with
-    proj = (x @ alpha) / r + b -- true division, as the kernel does."""
+    proj = (x @ alpha) / r + b -- true division, as the kernel does; the
+    floor saturates to int32 as the kernel's conversion does
+    (:func:`floor_to_int32`)."""
     proj = (x.float() @ alpha.float()) / r + b.float()
-    return torch.floor(proj).to(torch.int32), proj
+    return floor_to_int32(proj), proj
 
 
 def dct_mm_ref(fvals: torch.Tensor, dct_t: torch.Tensor,

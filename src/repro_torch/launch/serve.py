@@ -1,28 +1,36 @@
-"""Streaming serve demo on the card: the l2-basis tenant, end to end.
+"""Streaming serve demo on the card: the JAX demo's three tenants.
 
     python -m repro_torch.launch.serve                       # on the card
     python -m repro_torch.launch.serve --n-items 262144 --steps 20
     python -m repro_torch.launch.serve --device cpu --n-items 2048 --steps 4
+    python -m repro_torch.launch.serve --tenants l1-qmc,w2-quantile
     python -m repro_torch.launch.serve --precision int8      # int8 tier
     python -m repro_torch.launch.serve --device cpu --n-items 0 --steps 40 \
         --delete-frac 0.9 --compact-at 0.3                  # compacts
 
-The port of the scripted demo loop of ``repro/launch/serve.py`` for the
-``l2-basis`` tenant (p = 2, Chebyshev-basis embedding, Eq. 3).  It first
-fills the index with ``--n-items`` random smooth functions (embed +
-insert), then runs ``--steps`` ticks, each of which embeds and inserts a
-batch, submits several small query requests (perturbations of fresh
-functions) through the micro-batcher, tombstones a slice of the oldest
-items, and compacts the tenant (``servable.maintenance.compact()``) once
-its tombstone share exceeds ``--compact-at``.  It ends with a report:
-ingest rate, QPS and latency percentiles, recall@k against exact brute
-force on a probe set, the self-hit rate of stored items queried exactly,
-segment occupancy, compactions, the sealed store's bytes per item, device
-memory, and the kernels' launch counts.  ``--precision`` stores the sealed
-segments as bf16 or int8 codes (the quantized tier).
+The port of the scripted demo loop of ``repro/launch/serve.py``.  It
+serves the JAX demo's tenants (``default_specs``): ``l2-basis`` (p = 2,
+the Chebyshev-basis embedding, Eq. 3), ``l1-qmc`` (p = 1, Sobol node
+sampling, Eq. 6) and ``w2-quantile`` (W^2 over 1-D distributions by their
+clipped quantile functions, Remark 1); ``--tenants`` picks some of them.
+It first fills each tenant with ``--n-items`` items (embed + insert):
+random smooth functions at the tenant's nodes, or for the Wasserstein
+tenant 256 raw draws from a random Gaussian.  Then it runs ``--steps``
+ticks; in each, every tenant in name order embeds and inserts a batch,
+submits several small query requests (perturbations of fresh items)
+through its micro-batcher, tombstones a slice of its oldest items, and
+compacts (``servable.maintenance.compact()``) once its tombstone share
+exceeds ``--compact-at``.  It ends with a report per tenant: ingest rate,
+QPS and latency percentiles, recall@k against exact brute force on a probe
+set, the self-hit rate of stored items queried exactly, segment
+occupancy, compactions, the sealed store's bytes per item, and, for the
+run as a whole, device memory and the kernels' launch counts.
+``--precision`` stores the sealed segments as bf16 or int8 codes.
 
-The other tenants, WAL, snapshots and sharding are not ported yet; the
-defaults keep the JAX demo's shapes.
+Each tenant draws its data from its own generator, seeded ``seed + i``
+with i its place in ``TENANTS`` (the JAX demo shares one), so a tenant
+holds the same items whichever other tenants are served.  WAL, snapshots
+and sharding are not ported yet; the defaults keep the JAX demo's shapes.
 """
 
 from __future__ import annotations
@@ -37,16 +45,32 @@ import torch
 from ..kernels import dispatch
 from ..serve import ServableRegistry, ServableSpec, recall_proxy
 
+TENANTS = ("l2-basis", "l1-qmc", "w2-quantile")
+W2_DRAWS = 256          # raw draws per distribution the W^2 tenant ingests
+
+
+def default_specs(n_dims: int = 64, segment_capacity: int = 1024,
+                  max_delay_ms: float = 2.0, precision: str = "fp32"
+                  ) -> tuple:
+    """The demo's three tenants (JAX ``launch/serve.py:80-87``) at a
+    storage tier, in :data:`TENANTS` order."""
+    common = dict(n_dims=n_dims, segment_capacity=segment_capacity,
+                  chunk_sizes=(8, 32, 128), max_delay_ms=max_delay_ms,
+                  precision=precision)
+    return (ServableSpec(name="l2-basis", p=2.0, r=4.0, embedder="basis",
+                         **common),
+            ServableSpec(name="l1-qmc", p=1.0, r=8.0, embedder="qmc",
+                         **common),
+            ServableSpec(name="w2-quantile", p=2.0, r=0.5,
+                         embedder="wasserstein", **common))
+
 
 def default_spec(n_dims: int = 64, segment_capacity: int = 1024,
                  max_delay_ms: float = 2.0, precision: str = "fp32"
                  ) -> ServableSpec:
-    """The demo's l2-basis tenant (JAX ``launch/serve.py:81``) at a storage
-    tier (JAX ``--precision``)."""
-    return ServableSpec(name="l2-basis", n_dims=n_dims, p=2.0, r=4.0,
-                        embedder="basis", segment_capacity=segment_capacity,
-                        chunk_sizes=(8, 32, 128), max_delay_ms=max_delay_ms,
-                        precision=precision)
+    """The demo's l2-basis tenant (JAX ``launch/serve.py:81``)."""
+    return default_specs(n_dims, segment_capacity, max_delay_ms,
+                         precision)[0]
 
 
 def sample_fvals(rng: np.random.Generator, nodes: np.ndarray, n: int
@@ -58,6 +82,27 @@ def sample_fvals(rng: np.random.Generator, nodes: np.ndarray, n: int
     return np.sum(amps[:, :, None] *
                   np.sin(freqs[:, :, None] * nodes[None, None, :]
                          + phase[:, :, None]), axis=1).astype(np.float32)
+
+
+def sample_gaussian_draws(rng: np.random.Generator, n: int,
+                          draws: int = W2_DRAWS):
+    """n random 1-D Gaussians, mu ~ U[-1, 1] and sigma ~ U[0.1, 1], and
+    ``draws`` raw samples of each: (samples (n, draws) f64, mu (n,),
+    sigma (n,))."""
+    mu = rng.uniform(-1.0, 1.0, size=(n, 1))
+    sig = rng.uniform(0.1, 1.0, size=(n, 1))
+    return mu + sig * rng.normal(size=(n, draws)), mu[:, 0], sig[:, 0]
+
+
+def sample_inputs(sv, rng: np.random.Generator, n: int):
+    """A tenant's synthetic ingest (JAX ``launch/serve.py:292-311``): raw
+    Gaussian draws for the Wasserstein tenant, three-sine functions at the
+    tenant's nodes otherwise.  Returns (inputs for ``sv.embed``, (mu,
+    sigma) of the Gaussians or None)."""
+    if sv.spec.embedder == "wasserstein":
+        x, mu, sig = sample_gaussian_draws(rng, n)
+        return x, (mu, sig)
+    return sample_fvals(rng, sv.nodes(), n), None
 
 
 def _held_mask(index) -> torch.Tensor:
@@ -94,108 +139,138 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(*, device=None, n_items: int = 0, steps: int = 20,
+def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
         insert_batch: int = 64, query_batch: int = 8,
         queries_per_step: int = 4, k: int = 10, n_probes: int = 4,
         delete_frac: float = 0.05, compact_at: float = 0.3, n_dims: int = 64,
         segment_capacity: int = 1024, recall_probe_size: int = 64,
         self_hit_probes: int = 64, fill_batch: int = 8192, seed: int = 0,
-        precision: str = "fp32", registry=None, log=print) -> dict:
-    """Fill, run the demo loop, and return the report dict.  The tenant
-    is registered in ``registry`` (a fresh one on ``device`` by default),
-    so a caller that passes its own can keep querying it afterwards."""
+        precision: str = "fp32", registry=None, on_insert=None,
+        log=print) -> dict:
+    """Fill, run the demo loop, and return the report: one entry per
+    tenant, by name, as ``registry.report()`` gives.  ``tenants`` names
+    some of :data:`TENANTS` (None: all three).  The tenants are registered
+    in ``registry`` (a fresh one on ``device`` by default), so a caller
+    that passes its own can keep querying them afterwards.
+    ``on_insert(name, gids, params)``, when given, sees every insert: the
+    gids and, for the Wasserstein tenant, the Gaussians' (mu, sigma)."""
+    names = TENANTS if tenants is None else tuple(tenants)
+    unknown = sorted(set(names) - set(TENANTS))
+    if unknown:
+        raise ValueError(f"unknown tenants {unknown}; have {TENANTS}")
     registry = registry or ServableRegistry(device=device)
     dev = registry.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    rng = np.random.default_rng(seed)
-    sv = registry.register(default_spec(n_dims, segment_capacity,
-                                        precision=precision))
-    nodes = sv.nodes()
-    inserted: list = []
-    compactions = 0
+    specs = {sp.name: sp for sp in default_specs(n_dims, segment_capacity,
+                                                 precision=precision)}
+    svs, rngs = {}, {}
+    for name in sorted(names):
+        svs[name] = registry.register(specs[name])
+        rngs[name] = np.random.default_rng(seed + TENANTS.index(name))
+    inserted = {name: [] for name in svs}
+    compactions = {name: 0 for name in svs}
+    fill_s = {}
 
-    t0 = time.perf_counter()
-    for start in range(0, n_items, fill_batch):
-        rows = min(fill_batch, n_items - start)
-        inserted.extend(sv.insert(sv.embed(sample_fvals(rng, nodes, rows)))
-                        .tolist())
-    _sync(dev)
-    fill_s = time.perf_counter() - t0
-    log(f"[serve] filled {n_items} items in {fill_s:.3f}s "
-        f"({len(sv.index.segments)} segments)")
+    def ingest(name, n):
+        x, params = sample_inputs(svs[name], rngs[name], n)
+        gids = svs[name].insert(svs[name].embed(x))
+        inserted[name].extend(gids.tolist())
+        if on_insert is not None:
+            on_insert(name, gids, params)
 
-    futures = []
+    for name, sv in svs.items():
+        t0 = time.perf_counter()
+        for start in range(0, n_items, fill_batch):
+            ingest(name, min(fill_batch, n_items - start))
+        _sync(dev)
+        fill_s[name] = time.perf_counter() - t0
+        log(f"[serve] {name}: filled {n_items} items in "
+            f"{fill_s[name]:.3f}s ({len(sv.index.segments)} segments)")
+
+    futures = {name: [] for name in svs}
     t0 = time.perf_counter()
     for step in range(steps):
-        emb = sv.embed(sample_fvals(rng, nodes, insert_batch))
-        inserted.extend(sv.insert(emb).tolist())
-        for _ in range(queries_per_step):
-            base = sv.embed(sample_fvals(rng, nodes, query_batch)).cpu()
-            qs = base.numpy() + rng.normal(
-                scale=0.05, size=tuple(base.shape)).astype(np.float32)
-            futures.append(sv.submit_query(qs, k, n_probes))
-        sv.batcher.pump()
-        n_del = int(delete_frac * insert_batch)
-        if n_del and len(inserted) > 4 * n_del:
-            victims, inserted = inserted[:n_del], inserted[n_del:]
-            sv.delete(victims)
-        # the tombstone share from the index's host counters (a device
-        # reduction per segment would cost a sync each)
-        n_all = sv.index.n_items
-        if n_all and (n_all - sv.index.n_live) / n_all > compact_at:
-            sv.maintenance.compact()
-            compactions += 1
-    sv.batcher.flush_all()
+        for name, sv in svs.items():
+            rng = rngs[name]
+            ingest(name, insert_batch)
+            for _ in range(queries_per_step):
+                base = sv.embed(sample_inputs(sv, rng, query_batch)[0]).cpu()
+                qs = base.numpy() + rng.normal(
+                    scale=0.05, size=tuple(base.shape)).astype(np.float32)
+                futures[name].append(sv.submit_query(qs, k, n_probes))
+            sv.batcher.pump()
+            n_del = int(delete_frac * insert_batch)
+            if n_del and len(inserted[name]) > 4 * n_del:
+                victims = inserted[name][:n_del]
+                inserted[name] = inserted[name][n_del:]
+                sv.delete(victims)
+            # the tombstone share from the index's host counters (a device
+            # reduction per segment would cost a sync each)
+            n_all = sv.index.n_items
+            if n_all and (n_all - sv.index.n_live) / n_all > compact_at:
+                sv.maintenance.compact()
+                compactions[name] += 1
+    for sv in svs.values():
+        sv.batcher.flush_all()
     _sync(dev)
     loop_s = time.perf_counter() - t0
-    for f in futures:
-        f.result()             # a failed batch raises here
-    n_rows = sum(f.result()[0].shape[0] for f in futures)
-    log(f"[serve] {steps} steps in {loop_s:.3f}s: {len(futures)} requests, "
-        f"{n_rows} query rows answered")
+    n_rows = {}
+    for name, futs in futures.items():
+        for f in futs:
+            f.result()             # a failed batch raises here
+        n_rows[name] = sum(f.result()[0].shape[0] for f in futs)
+    log(f"[serve] {steps} steps in {loop_s:.3f}s: "
+        + ", ".join(f"{name} {len(futures[name])} requests, {n_rows[name]} "
+                    "query rows answered" for name in svs))
 
-    probe = sv.embed(sample_fvals(rng, nodes, recall_probe_size))
-    recall = recall_proxy(sv.index, probe, k, n_probes=n_probes)
-    sv.stats.record_recall(recall)
-
-    # Stored items queried exactly must come back first, at distance 0:
-    # build and query hash through one implementation.
-    self_hit = self_hit_rate(sv, k, n_probes, self_hit_probes)
-
-    rep = sv.report()
-    stats = rep["stats"]
-    report = {
-        "device": str(dev),
-        "device_name": (torch.cuda.get_device_name(dev)
-                        if dev.type == "cuda" else "cpu"),
-        "n_items_filled": n_items,
-        "fill_s": fill_s,
-        "ingest_rows_per_s": n_items / fill_s if fill_s > 0 else 0.0,
-        "steps": steps,
-        "loop_s": loop_s,
-        "requests": len(futures),
-        "query_rows": n_rows,
-        "qps": stats["qps"],
-        "p50_ms": stats["p50_ms"],
-        "p95_ms": stats["p95_ms"],
-        "recall_at_k": recall,
-        "k": k,
-        "recall_probe_size": recall_probe_size,
-        "self_hit_rate": self_hit,
-        "held_frac": float(_held_mask(sv.index).float().mean()),
-        "precision": precision,
-        "store_bytes_per_item": rep["store"]["store_bytes_per_item"],
-        "rerank_survivor_frac": rep["store"]["rerank_survivor_frac"],
-        "n_segments": rep["occupancy"]["n_segments"],
-        "n_live": rep["occupancy"]["n_live"],
-        "compactions": compactions,
-        "bucket_overflow_frac": rep["occupancy"]["bucket_overflow_frac"],
-        "unique_shapes": rep["batcher"]["unique_shapes"],
-        "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
-                                 if dev.type == "cuda" else None),
-        "launches": dict(dispatch.launches),
-    }
+    report = {}
+    for name, sv in svs.items():
+        probe = sv.embed(sample_inputs(sv, rngs[name],
+                                       recall_probe_size)[0])
+        recall = recall_proxy(sv.index, probe, k, n_probes=n_probes)
+        sv.stats.record_recall(recall)
+        # Stored items queried exactly must come back first, at distance
+        # 0: build and query hash through one implementation.
+        self_hit = self_hit_rate(sv, k, n_probes, self_hit_probes)
+        rep = sv.report()
+        stats = rep["stats"]
+        report[name] = {
+            "device": str(dev),
+            "device_name": (torch.cuda.get_device_name(dev)
+                            if dev.type == "cuda" else "cpu"),
+            "embedder": sv.spec.embedder,
+            "p": sv.spec.p,
+            "r": sv.spec.r,
+            "n_items_filled": n_items,
+            "fill_s": fill_s[name],
+            "ingest_rows_per_s": (n_items / fill_s[name]
+                                  if fill_s[name] > 0 else 0.0),
+            "steps": steps,
+            "loop_s": loop_s,
+            "requests": len(futures[name]),
+            "query_rows": n_rows[name],
+            "qps": stats["qps"],
+            "p50_ms": stats["p50_ms"],
+            "p95_ms": stats["p95_ms"],
+            "recall_at_k": recall,
+            "k": k,
+            "recall_probe_size": recall_probe_size,
+            "self_hit_rate": self_hit,
+            "held_frac": float(_held_mask(sv.index).float().mean()),
+            "precision": precision,
+            "store_bytes_per_item": rep["store"]["store_bytes_per_item"],
+            "rerank_survivor_frac": rep["store"]["rerank_survivor_frac"],
+            "n_segments": rep["occupancy"]["n_segments"],
+            "n_live": rep["occupancy"]["n_live"],
+            "compactions": compactions[name],
+            "bucket_overflow_frac": rep["occupancy"]["bucket_overflow_frac"],
+            "unique_shapes": rep["batcher"]["unique_shapes"],
+            # the run's, over every tenant
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None),
+            "launches": dict(dispatch.launches),
+        }
     return report
 
 
@@ -203,8 +278,11 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--tenants", default=",".join(TENANTS),
+                    help="comma-separated tenants to serve, of "
+                         f"{', '.join(TENANTS)} (default: all)")
     ap.add_argument("--n-items", type=int, default=0,
-                    help="items to insert before the loop")
+                    help="items to insert into each tenant before the loop")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--insert-batch", type=int, default=64)
     ap.add_argument("--query-batch", type=int, default=8)
@@ -214,7 +292,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--n-dims", type=int, default=64)
     ap.add_argument("--delete-frac", type=float, default=0.05)
     ap.add_argument("--compact-at", type=float, default=0.3,
-                    help="compact the tenant when its tombstone share "
+                    help="compact a tenant when its tombstone share "
                          "exceeds this")
     ap.add_argument("--segment-capacity", type=int, default=1024)
     ap.add_argument("--recall-probe-size", type=int, default=64)
@@ -225,7 +303,9 @@ def main(argv=None) -> dict:
                          "bf16/int8 are bounded-loss with an exact fp32 "
                          "survivor rerank")
     args = ap.parse_args(argv)
-    report = run(device=args.device, n_items=args.n_items, steps=args.steps,
+    report = run(device=args.device,
+                 tenants=[t for t in args.tenants.split(",") if t],
+                 n_items=args.n_items, steps=args.steps,
                  insert_batch=args.insert_batch,
                  query_batch=args.query_batch,
                  queries_per_step=args.queries_per_step, k=args.k,
@@ -234,6 +314,13 @@ def main(argv=None) -> dict:
                  n_dims=args.n_dims, segment_capacity=args.segment_capacity,
                  recall_probe_size=args.recall_probe_size, seed=args.seed,
                  precision=args.precision)
+    for name, rep in report.items():
+        print(f"[serve] {name}: live={rep['n_live']} "
+              f"segments={rep['n_segments']} "
+              f"compactions={rep['compactions']} "
+              f"recall@{rep['k']}={rep['recall_at_k']:.3f} "
+              f"self_hit={rep['self_hit_rate']:.3f} qps={rep['qps']} "
+              f"p95={rep['p95_ms']}ms")
     print("[serve] report:", json.dumps(report))
     print("[serve] OK")
     return report

@@ -36,7 +36,7 @@ class ServableSpec:
 
     name: str
     n_dims: int = 64
-    p: float = 2.0                 # l_p of the p-stable family (1 or 2)
+    p: float = 2.0                 # l_p of the p-stable family, (0, 2]
     r: float = 1.0                 # quantisation width (Eq. 5)
     n_tables: int = 8
     n_hashes: int = 4

@@ -632,6 +632,34 @@ def test_simhash_family_on_the_card(gen, k):
     assert torch.equal(h_g[ok & ok[:, :1]], h_c[ok & ok[:, :1]])
 
 
+@pytest.mark.parametrize("p", [1.5, 0.5])
+def test_lazy_hash_on_the_card(gen, p):
+    """``LazyPStableHash`` on its default device (the card, K1) against
+    the same hasher on the CPU (the plain version), with Chambers-Mallows-
+    Stuck blocks: hashes equal where |proj - round(proj)| > 1e-4 + 1e-6
+    (|x| @ |alpha| + |b|), and through one growth of alpha (128 -> 384
+    rows) the first rows and earlier hashes unchanged."""
+    from repro_torch.core.hashes import LazyPStableHash
+    lz_g = LazyPStableHash.create(7, 32, p=p)
+    lz_c = LazyPStableHash.create(7, 32, p=p, device="cpu")
+    assert lz_g.b.is_cuda and lz_g.coeffs.device.type == "cuda"
+    g = torch.randn((24, 300), generator=gen) * 0.5
+    before = dispatch.launches["hash_mm"]
+    h100 = lz_g(g[:, :100].cuda())
+    assert dispatch.launches["hash_mm"] == before + 1
+    first = lz_g.coeffs.alpha(128).clone()
+    h300 = lz_g(g.cuda())
+    assert lz_g.coeffs.current_n == 384
+    assert torch.equal(lz_g.coeffs.alpha(128), first)
+    assert torch.equal(lz_g(g[:, :100].cuda()), h100)
+    for n_f, h in ((100, h100), (300, h300)):
+        alpha = lz_c.coeffs.alpha(n_f)
+        _, pp = ref.hash_mm_proj_ref(g[:, :n_f], alpha, lz_c.b, lz_c.r)
+        terms = g[:, :n_f].abs() @ alpha.abs() + lz_c.b.abs()
+        safe = (pp - torch.round(pp)).abs() > 1e-4 + 1e-6 * terms
+        assert torch.equal(h.cpu()[safe], lz_c(g[:, :n_f])[safe])
+
+
 FP32_PATH = ("hash_mm", "dct_mm", "fused_query", "merge")
 INT8_PATH = FP32_PATH + ("quantized_query", "rerank")
 
@@ -639,8 +667,9 @@ INT8_PATH = FP32_PATH + ("quantized_query", "rerank")
 def test_serve_path_runs_on_the_card(gen):
     from repro_torch.launch import serve
     dispatch.reset_launches()
-    rep = serve.run(device="cuda", n_items=4096, steps=2,
-                    recall_probe_size=8, log=lambda *a: None)
+    rep = serve.run(device="cuda", tenants=("l2-basis",), n_items=4096,
+                    steps=2, recall_probe_size=8,
+                    log=lambda *a: None)["l2-basis"]
     assert all(rep["launches"][k] > 0 for k in FP32_PATH)
     assert rep["self_hit_rate"] >= 0.95
 
@@ -648,9 +677,9 @@ def test_serve_path_runs_on_the_card(gen):
 def test_int8_serve_path_runs_on_the_card(gen):
     from repro_torch.launch import serve
     dispatch.reset_launches()
-    rep = serve.run(device="cuda", n_items=4096, steps=2,
-                    recall_probe_size=8, precision="int8",
-                    log=lambda *a: None)
+    rep = serve.run(device="cuda", tenants=("l2-basis",), n_items=4096,
+                    steps=2, recall_probe_size=8, precision="int8",
+                    log=lambda *a: None)["l2-basis"]
     assert all(rep["launches"][k] > 0 for k in INT8_PATH)
     assert rep["self_hit_rate"] >= 0.95
     assert rep["store_bytes_per_item"] <= 256 / 3

@@ -521,13 +521,15 @@ def test_launch_counts_from_threads_are_not_lost():
 def test_launcher_compacts_past_compact_at():
     """At 90% deletes a step the tombstone share passes 0.3 within a few
     steps; the default 5% never reaches it."""
-    rep = tserve.run(device="cpu", n_items=0, steps=12, delete_frac=0.9,
-                     compact_at=0.3, recall_probe_size=8, self_hit_probes=16,
-                     log=lambda *a: None)
+    rep = tserve.run(device="cpu", tenants=("l2-basis",), n_items=0,
+                     steps=12, delete_frac=0.9, compact_at=0.3,
+                     recall_probe_size=8, self_hit_probes=16,
+                     log=lambda *a: None)["l2-basis"]
     assert rep["compactions"] > 0
     assert rep["self_hit_rate"] >= 0.95
     # deletes start once more than 4 x 57 items are in: from the 4th step
     assert rep["n_live"] == 12 * 64 - 9 * 57
-    rep = tserve.run(device="cpu", n_items=0, steps=6, recall_probe_size=8,
-                     self_hit_probes=16, log=lambda *a: None)
+    rep = tserve.run(device="cpu", tenants=("l2-basis",), n_items=0,
+                     steps=6, recall_probe_size=8, self_hit_probes=16,
+                     log=lambda *a: None)["l2-basis"]
     assert rep["compactions"] == 0

@@ -248,9 +248,10 @@ def test_servable_carries_the_tier_into_its_report():
 
 
 def test_launcher_runs_the_int8_tier_on_the_cpu():
-    rep = tserve.run(device="cpu", n_items=1024, steps=2, recall_probe_size=8,
-                     self_hit_probes=16, segment_capacity=256,
-                     precision="int8", log=lambda *a: None)
+    rep = tserve.run(device="cpu", tenants=("l2-basis",), n_items=1024,
+                     steps=2, recall_probe_size=8, self_hit_probes=16,
+                     segment_capacity=256, precision="int8",
+                     log=lambda *a: None)["l2-basis"]
     assert rep["precision"] == "int8"
     assert rep["self_hit_rate"] >= 0.95
     assert rep["store_bytes_per_item"] <= 256 / 3

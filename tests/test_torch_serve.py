@@ -188,15 +188,19 @@ def test_servable_query_paths_agree():
 
 
 def test_serve_demo_runs_on_cpu():
-    rep = tserve.main(["--device", "cpu", "--n-items", "1024",
-                       "--steps", "2", "--recall-probe-size", "8"])
-    assert rep["n_segments"] == 2 and rep["requests"] == 8
-    assert rep["query_rows"] == 64
-    assert rep["self_hit_rate"] == 1.0
-    assert 0.0 < rep["held_frac"] <= 1.0
-    assert 0.0 <= rep["recall_at_k"] <= 1.0
-    assert all(v == 0 for v in rep["launches"].values())   # no kernels on
-    # the CPU: the plain versions ran
+    """The CLI serves the JAX demo's three tenants by default; the report
+    has one entry per tenant."""
+    report = tserve.main(["--device", "cpu", "--n-items", "1024",
+                          "--steps", "2", "--recall-probe-size", "8"])
+    assert tuple(report) == ("l1-qmc", "l2-basis", "w2-quantile")
+    for rep in report.values():
+        assert rep["n_segments"] == 2 and rep["requests"] == 8
+        assert rep["query_rows"] == 64
+        assert rep["self_hit_rate"] == 1.0
+        assert 0.0 < rep["held_frac"] <= 1.0
+        assert 0.0 <= rep["recall_at_k"] <= 1.0
+        assert all(v == 0 for v in rep["launches"].values())  # no kernels
+        # on the CPU: the plain versions ran
 
 
 def test_servable_refuses_to_run_without_a_device(monkeypatch):

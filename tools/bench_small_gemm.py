@@ -276,8 +276,8 @@ def path(plain_lib):
     fn = plain_lib.hash_mm_launch
     fn.argtypes, fn.restype = own()[1].argtypes, I
     registry = ServableRegistry(device="cuda")
-    serve.run(registry=registry, n_items=chip_smoke.MAIN_ITEMS, steps=0,
-              log=lambda *a: None)
+    serve.run(registry=registry, tenants=("l2-basis",),
+              n_items=chip_smoke.MAIN_ITEMS, steps=0, log=lambda *a: None)
     sv = registry.get("l2-basis")
     rec = {"path": "l2-basis", "items": chip_smoke.MAIN_ITEMS,
            "segments": len(sv.index.segments)}
