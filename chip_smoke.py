@@ -23,7 +23,10 @@ each of which raises on failure (the script then exits non-zero):
    and p = 1, K5 with one scale per segment;
    K6 at five widths and three metrics, aligned and not; K7 bit for bit
    against its fmaf chain at five shapes, aligned and not, and across
-   batch sizes; the tie check over 8 seeds);
+   batch sizes; the tie check over 8 seeds; query rows holding a NaN or
+   an infinity at fp32 / bf16 / int8, stacked and fanned out: (-1, +inf)
+   on the card as on the CPU, the other rows unchanged, no kernel given a
+   NaN);
 4. parity: the l2-basis, l1-qmc and w2-quantile pipelines at 8,192 items
    on the CPU (plain versions) and on the card (kernels) with one
    injected family each, and l2-basis at the int8 tier (whose gids must
@@ -67,9 +70,23 @@ each of which raises on failure (the script then exits non-zero):
    oracle gate (``launch.w2_gate``, the bench's full config: best
    recall@10 against ``gaussian_w2`` >= 0.9); the big W2 tenant's
    recall@10 against ``gaussian_w2`` on 64 fresh Gaussians (reported);
-   the Wasserstein embed's card and host time per 128-row chunk.
+   the Wasserstein embed's card and host time per 128-row chunk;
+10. durability, after phase 9's tenants are released, at fp32 then int8:
+   l2-basis with a WAL (``ServableRegistry(wal_dir=...)``) filled to
+   262,144 items and snapshotted, then 20 steps of inserts and deletes
+   with an explicit seal and a compaction, while a ``WalStandby`` tails
+   the WAL; promoted, it must answer 64 probes bit-equal to the primary.
+   The same workload runs in a child process on the card that a
+   ``FaultPlan`` kills (SIGKILL) at ``wal.append`` (step 7's INSERT) and,
+   in another child, at ``compact.swap``; a fresh child recovers each
+   (``recover``: snapshot + WAL tail) and must answer bit-equal (gids and
+   distance bits) to a fresh index fed the durable prefix in this
+   process, and a second replay must drop duplicates and change no bit.
+   It prints the snapshot's bytes and seconds, WAL bytes per inserted
+   item, replay rows/s, the recovery's wall, and ingest rows/s with no
+   WAL and at fsync_every 1, 8 and 0.
 
-Launch counts are read around each of phases 6-9.
+Launch counts are read around each of phases 6-10.
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -81,7 +98,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2 and 6-9 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-10 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -1082,6 +1099,107 @@ def check_merge_select(gen):
         "signs of zero included (as values only where a row pairs one id "
         "with both signs); the mixed row [0, -0, 0, -0, 1, 2, -0, 0] gives "
         "ids [1, 3, 4, 5] and distances [0, -0, 0, -0]")
+
+
+NAN_ENTRY_POINTS = ("pstable_hash_proj", "fused_query_topk",
+                    "quantized_query_topk", "candidate_distances",
+                    "merge_topk")
+
+
+def check_nan_queries(n_items=3000, rows=32):
+    """Query rows holding a NaN, +inf or -inf (and one all-NaN row) at the
+    demo's l2-basis config, fp32 / bf16 / int8, 1 and 4 probes, stacked
+    query and per-segment fan-out: on the card each such row answers (-1,
+    +inf) in every slot, bit-equal to the CPU's, and every other row keeps
+    the card's bits for the batch with finite rows in their place; no
+    kernel entry point (K1 hash, K2, K5, K6, K3 merge) receives a NaN.
+    Returns the number of batches checked.  A checkout before the repair
+    has no guard (``SegmentedIndex`` then zeroes nothing) and fails."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SegmentedIndex
+
+    spec = tenant_spec("l2-basis")
+    cfg = spec.index_config()
+    fam = parity_family(cfg, np.random.default_rng(4321))
+    rng = np.random.default_rng(11)
+    data = rng.normal(size=(n_items, cfg.n_dims)).astype(np.float32)
+    q = (0.9 * rng.normal(size=(rows, cfg.n_dims))).astype(np.float32)
+    clean = q.copy()
+    bad_rows = [1, 4, 5, 6, 17, 31]
+    for r, v in zip(bad_rows, (np.nan, np.inf, -np.inf, np.nan, np.inf,
+                               np.nan)):
+        q[r, (7 * r) % cfg.n_dims] = v
+        clean[r] = rng.normal(size=cfg.n_dims).astype(np.float32)
+    q[6, :] = np.nan
+    good = np.setdiff1d(np.arange(rows), bad_rows)
+    real = {n: getattr(ops, n) for n in NAN_ENTRY_POINTS}
+
+    def guard(name):
+        def checked(*args, **kw):
+            for a in list(args) + list(kw.values()):
+                if isinstance(a, torch.Tensor) and a.is_floating_point() \
+                        and bool(torch.isnan(a).any()):
+                    raise AssertionError(f"NaN rows: {name} received a NaN")
+            return real[name](*args, **kw)
+        return checked
+
+    def host(pair):
+        return (pair[0].cpu().numpy(), pair[1].cpu().numpy().view(np.int32))
+
+    n_checked = 0
+    for name in NAN_ENTRY_POINTS:
+        setattr(ops, name, guard(name))
+    try:
+        for precision in ("fp32", "bf16", "int8"):
+            idx = {}
+            for dev in ("cpu", "cuda"):
+                idx[dev] = SegmentedIndex(
+                    cfg, segment_capacity=spec.segment_capacity,
+                    insert_chunk=spec.insert_chunk,
+                    family=convert.family_from_numpy(*fam, device=dev),
+                    precision=precision, device=dev)
+                g = idx[dev].insert(data)
+                idx[dev].delete(g[::13])
+            for n_probes in (1, 4):
+                for how in ("query", "_query_fanout"):
+                    call = {d: getattr(idx[d], how) for d in idx}
+                    got = host(call["cuda"](q, 10, n_probes=n_probes))
+                    ref = host(call["cuda"](clean, 10, n_probes=n_probes))
+                    cpu = host(call["cpu"](q, 10, n_probes=n_probes))
+                    inf_bits = np.float32(np.inf).view(np.int32)
+                    if not ((got[0][bad_rows] == -1).all()
+                            and (got[1][bad_rows] == inf_bits).all()):
+                        raise AssertionError(
+                            f"NaN rows ({precision}, {how}, {n_probes} "
+                            "probes): the card's bad rows are not (-1, "
+                            "+inf)")
+                    if not (np.array_equal(got[0][bad_rows],
+                                           cpu[0][bad_rows])
+                            and np.array_equal(got[1][bad_rows],
+                                               cpu[1][bad_rows])):
+                        raise AssertionError(
+                            f"NaN rows ({precision}, {how}): card and CPU "
+                            "differ on the bad rows")
+                    if not (np.array_equal(got[0][good], ref[0][good])
+                            and np.array_equal(got[1][good], ref[1][good])):
+                        raise AssertionError(
+                            f"NaN rows ({precision}, {how}, {n_probes} "
+                            "probes): a finite row changed")
+                    if (got[0][good, 0] < 0).any():
+                        raise AssertionError(f"NaN rows ({precision}): a "
+                                             "finite row found nothing")
+                    n_checked += 1
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    log(f"  NaN / +-inf query rows: {len(bad_rows)} of {rows} rows bad "
+        f"(one all NaN), {n_items} items, fp32 / bf16 / int8 x 1, 4 probes "
+        f"x stacked, fan-out: {n_checked} batches, bad rows (-1, +inf) on "
+        "the card as on the CPU, finite rows bit-equal to the batch "
+        "without the bad values, no kernel given a NaN")
+    return n_checked
 
 
 # -- phase 4: CPU vs card parity ----------------------------------------------
@@ -2144,16 +2262,16 @@ def serve_run(tenants, **kw):
 
 
 def run_paths(card, smi):
-    """Phases 6-9: the fp32 main path, the int8 path beside it (each with
+    """Phases 6-10: the fp32 main path, the int8 path beside it (each with
     two profiled batches), the simhash path, the compaction of both
-    tenants, then the l1-qmc and w2-quantile tenants; the launch counts of
-    the runs summed, and the profiles and reports."""
+    tenants, the l1-qmc and w2-quantile tenants, then durability; the
+    launch counts of the runs summed, and the profiles and reports."""
     import gc
 
     import torch
 
     from repro_torch.serve import ServableRegistry
-    log(f"[6/9] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/10] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve_run(
@@ -2164,7 +2282,7 @@ def run_paths(card, smi):
     check_report(report, "fp32")
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
 
-    log(f"[7/9] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/10] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -2180,7 +2298,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/9] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/10] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -2210,7 +2328,23 @@ def run_paths(card, smi):
         counts9, paths["tenants"] = tenants_phase(card, smi)
         runs += counts9
     else:
-        log("[9/9] tenants: this checkout serves l2-basis only")
+        log("[9/10] tenants: this checkout serves l2-basis only")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(ServableRegistry, "recover"):
+        log(f"[10/10] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
+            f"a snapshot and a warm standby, then {DURABLE_STEPS} steps; "
+            "kill -9 at wal.append and at compact.swap in children, each "
+            "recovered in a fresh child; fp32 then int8")
+        t0 = time.perf_counter()
+        for tier, path in (("fp32", FP32_PATH), ("int8", INT8_PATH)):
+            c, paths[f"durability {tier}"] = drive(
+                lambda: durability_phase(card, smi, tier), card, smi, path,
+                f"durability ({tier})")
+            runs.append(c)
+        log(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
+    else:
+        log("[10/10] durability: this checkout has no WAL")
     counts_all = {name: sum(c[name] for c in runs) for name in counts}
     return counts_all, paths
 
@@ -2272,7 +2406,7 @@ def tenants_phase(card, smi):
     from repro_torch.launch import w2_gate
     from repro_torch.serve import ServableRegistry
     names = ("l1-qmc", "w2-quantile")
-    log(f"[9/9] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+    log(f"[9/10] tenants: repro_torch.launch.serve, {', '.join(names)}, "
         f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
         "int8")
     params = {"mu": np.zeros(0), "sig": np.zeros(0)}
@@ -2346,6 +2480,241 @@ def tenants_phase(card, smi):
     return [counts, counts8], out
 
 
+# -- phase 10: durability ------------------------------------------------------
+
+
+DURABLE_SEED = 77
+DURABLE_STEPS = 20
+DURABLE_SEAL_STEP, DURABLE_COMPACT_STEP = 10, 15
+DURABLE_FILL_BATCH = 8192
+DURABLE_PROBES = 64
+# wal.append events before the steps: REGISTER + one INSERT a fill batch;
+# the kill lands at step 7's INSERT, with 14 step records durable
+DURABLE_APPEND_KILL = 1 + MAIN_ITEMS // DURABLE_FILL_BATCH + 15
+INGEST_BATCHES, INGEST_ROWS = 128, 64
+CHILD_TIMEOUT_S = 300
+
+
+def durable_workload(reg, precision, ckpt_dir, between_steps=None):
+    """The phase's workload, the same in this process and in its children:
+    register l2-basis at ``precision`` in ``reg``, fill MAIN_ITEMS items
+    (embed + insert, 8,192 a batch), snapshot to ``ckpt_dir``, then
+    DURABLE_STEPS demo steps (64 inserts and 3 deletes of filled items a
+    step, an explicit seal at step 10, a compaction at step 15).  Returns
+    the servable and the fill's and the snapshot's seconds."""
+    import torch
+    sv = reg.register(tenant_spec("l2-basis", precision))
+    rng = np.random.default_rng(DURABLE_SEED)
+    t0 = time.perf_counter()
+    for start in range(0, MAIN_ITEMS, DURABLE_FILL_BATCH):
+        sv.insert(sv.embed(probe_inputs(
+            sv, rng, min(DURABLE_FILL_BATCH, MAIN_ITEMS - start))))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reg.snapshot(ckpt_dir, step=1)
+    snapshot_s = time.perf_counter() - t0
+    for step in range(DURABLE_STEPS):
+        sv.insert(sv.embed(probe_inputs(sv, rng, 64)))
+        sv.delete((np.arange(3 * step, 3 * step + 3) * 997) % MAIN_ITEMS)
+        if step == DURABLE_SEAL_STEP:
+            sv.index.maintenance.seal()
+        if step == DURABLE_COMPACT_STEP:
+            sv.maintenance.compact()
+        if between_steps is not None:
+            between_steps(step)
+    return sv, fill_s, snapshot_s
+
+
+def durable_probes(sv):
+    """The phase's 64 probe rows (fresh functions, embedded)."""
+    return sv.embed(probe_inputs(sv, np.random.default_rng(4242),
+                                 DURABLE_PROBES)).cpu().numpy()
+
+
+def durable_child(job: dict) -> int:
+    """A child process of phase 10 on the card: ``crash`` runs the
+    workload under a kill plan (and must not survive it); ``recover``
+    recovers the crashed tenant, answers the probes, replays the whole log
+    again (duplicates must drop, no bit may change) and saves the answers
+    and its timings to ``job["out"]``."""
+    import torch
+    from repro_torch.serve import ServableRegistry, faults
+    if job["mode"] == "crash":
+        faults.install(faults.FaultPlan(
+            faults.FaultSpec(job["site"], job["nth"], "kill")))
+        durable_workload(ServableRegistry(device="cuda", wal_dir=job["wal"]),
+                         job["precision"], job["ckpt"])
+        print("SURVIVED", flush=True)
+        return 3
+    reg = ServableRegistry(device="cuda")
+    t0 = time.perf_counter()
+    reports = reg.recover(ckpt_root=job["ckpt"], wal_dir=job["wal"])
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    sv = reg.get("l2-basis")
+    probes = durable_probes(sv)
+    first = answer(sv.index, probes)
+    again = sv.index.replay(str(Path(job["wal"]) / "l2-basis.wal"))
+    second = answer(sv.index, probes)
+    if again["dropped_duplicates"] <= 0 or not same(first, second):
+        print(f"second replay changed the answers or dropped nothing: "
+              f"{again}", flush=True)
+        return 4
+    rep = reports["l2-basis"]
+    np.savez(job["out"], gids=first[0], dist_bits=first[1])
+    Path(job["out"] + ".json").write_text(json.dumps({
+        "recover_s": recover_s, "restored_step": rep["restored_step"],
+        "replayed_records": rep.get("applied"),
+        "truncated": rep.get("truncated"),
+        "second_replay_dropped": again["dropped_duplicates"],
+        "n_live": sv.index.n_live}))
+    return 0
+
+
+def run_child(job: dict):
+    """``chip_smoke.py --durable-child JOB`` in a fresh process on the
+    card, at most CHILD_TIMEOUT_S; returns the finished process."""
+    return subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--durable-child",
+         json.dumps(job)], capture_output=True, text=True,
+        timeout=CHILD_TIMEOUT_S, cwd=ROOT)
+
+
+def crash_and_recover(tmp, precision, site, nth):
+    """A child runs the workload and is killed at ``site`` #``nth``; a
+    fresh child recovers; this process replays the durable prefix into a
+    fresh index (the uninterrupted run over it) and requires the
+    recovered answers to equal its own bit for bit.  Returns the numbers."""
+    import signal
+
+    import torch
+    from repro_torch.serve import ServableRegistry, wal
+    from repro_torch.serve.registry import _spec_from_manifest
+    d = Path(tmp) / f"{precision}-{site}"
+    job = {"precision": precision, "wal": str(d / "wal"),
+           "ckpt": str(d / "ckpt"), "site": site, "nth": nth,
+           "out": str(d / "answers.npz")}
+    crash = run_child(dict(job, mode="crash"))
+    if crash.returncode != -signal.SIGKILL or "SURVIVED" in crash.stdout:
+        raise AssertionError(f"durability ({precision}): the child was not "
+                             f"killed at {site}#{nth} (rc "
+                             f"{crash.returncode})\n{crash.stderr[-2000:]}")
+    rec = run_child(dict(job, mode="recover"))
+    if rec.returncode != 0:
+        raise AssertionError(f"durability ({precision}): recovery after "
+                             f"{site}#{nth} failed (rc {rec.returncode})\n"
+                             f"{rec.stdout[-1000:]}{rec.stderr[-2000:]}")
+    wpath = str(d / "wal" / "l2-basis.wal")
+    ref = ServableRegistry(device="cuda").register(
+        _spec_from_manifest(wal.read_spec(wpath)))
+    t0 = time.perf_counter()
+    rep = ref.index.replay(wpath)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    rows = sum(r.gids.size for r in wal.read_wal(wpath)[0]
+               if r.op == wal.OP_INSERT)
+    got = np.load(job["out"])
+    want = answer(ref.index, durable_probes(ref))
+    if not same((got["gids"], got["dist_bits"]), want):
+        raise AssertionError(f"durability ({precision}): recovery after "
+                             f"{site}#{nth} is not bit-equal to the "
+                             "uninterrupted run over the durable prefix")
+    child = json.loads(Path(job["out"] + ".json").read_text())
+    if child["n_live"] != ref.index.n_live or (want[0] < 0).all():
+        raise AssertionError(f"durability ({precision}): {child} vs "
+                             f"{ref.index.n_live} live")
+    return {"site": f"{site}#{nth}", **child,
+            "durable_records": rep["n_records"],
+            "reference_replay_s": replay_s,
+            "replay_rows_per_s": rows / replay_s, "replayed_rows": rows}
+
+
+def ingest_rates(tmp, precision):
+    """Insert rows/s of INGEST_BATCHES 64-row batches (pre-embedded on the
+    card) into an empty tenant with no WAL and with a WAL at fsync_every
+    1, 8 and 0."""
+    import torch
+    from repro_torch.serve import ServableRegistry
+    x = torch.randn((INGEST_BATCHES + 1) * INGEST_ROWS, 64,
+                    generator=torch.Generator().manual_seed(3)).cuda()
+    out = {}
+    for fe in (None, 1, 8, 0):
+        wal_dir = None if fe is None else str(Path(tmp) / f"ingest-{fe}")
+        reg = ServableRegistry(device="cuda", wal_dir=wal_dir,
+                               fsync_every=fe)
+        sv = reg.register(tenant_spec("l2-basis", precision))
+        sv.insert(x[:INGEST_ROWS])                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(1, INGEST_BATCHES + 1):
+            sv.insert(x[b * INGEST_ROWS:(b + 1) * INGEST_ROWS])
+        torch.cuda.synchronize()
+        out["no_wal" if fe is None else f"fsync_every_{fe}"] = (
+            INGEST_BATCHES * INGEST_ROWS / (time.perf_counter() - t0))
+    return out
+
+
+def durability_phase(card, smi, precision):
+    """Phase 10 at one tier: the workload in this process with a WAL, a
+    snapshot and a warm standby tailing the WAL (promoted at the end, it
+    must answer bit-equal to the primary); the kill -9 at ``wal.append``
+    and at ``compact.swap`` in children, each recovered in a fresh child
+    and held bit for bit to a replay of its durable prefix; the ingest
+    rates.  Returns the numbers."""
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch.serve import ServableRegistry, WalStandby
+    with tempfile.TemporaryDirectory(prefix="durability-") as tmp:
+        wal_dir, ckpt_dir = Path(tmp) / "wal", Path(tmp) / "ckpt"
+        reg = ServableRegistry(device="cuda", wal_dir=str(wal_dir))
+        standby = WalStandby(str(wal_dir), device="cuda")
+        lags = []
+
+        def tail(step):
+            if step % 5 == 4:
+                standby.poll_once()
+                lags.append(standby.lag().get("l2-basis"))
+        sv, fill_s, snapshot_s = durable_workload(reg, precision,
+                                                  str(ckpt_dir), tail)
+        probes = durable_probes(sv)
+        want = answer(sv.index, probes)
+        t0 = time.perf_counter()
+        promoted = standby.promote()["l2-basis"]
+        promote_s = time.perf_counter() - t0
+        if standby.running:
+            raise AssertionError("durability: the standby's tailer lives")
+        if not same(answer(standby.registry.get("l2-basis").index, probes),
+                    want):
+            raise AssertionError(f"durability ({precision}): the promoted "
+                                 "standby differs from the primary")
+        wal_bytes = (wal_dir / "l2-basis.wal").stat().st_size
+        inserted = MAIN_ITEMS + DURABLE_STEPS * 64
+        snap_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                         if f.is_file())
+        del reg, standby, sv
+        gc.collect()
+        torch.cuda.empty_cache()
+        crashes = [crash_and_recover(tmp, precision, "wal.append",
+                                     DURABLE_APPEND_KILL),
+                   crash_and_recover(tmp, precision, "compact.swap", 1)]
+        ingest = ingest_rates(tmp, precision)
+    res = {"tier": precision, "items": MAIN_ITEMS, "steps": DURABLE_STEPS,
+           "fill_rows_per_s_with_wal": MAIN_ITEMS / fill_s,
+           "snapshot_bytes": snap_bytes, "snapshot_s": snapshot_s,
+           "wal_bytes": wal_bytes,
+           "wal_bytes_per_inserted_item": wal_bytes / inserted,
+           "standby_lag_bytes_after_polls": lags,
+           "standby_promote_s": promote_s,
+           "standby_promote_applied": promoted["applied"],
+           "crashes": crashes, "ingest_rows_per_s": ingest}
+    log(f"  [{card}, {smi.split(',')[-1].strip()}] durability ({precision}) "
+        + json.dumps(res))
+    return res
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2358,14 +2727,19 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2 and 6-9 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-10 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
-                    "the compactions and the l1-qmc and w2-quantile "
-                    "tenants, then one JSON line of profiles and reports; "
+                    "the compactions, the l1-qmc and w2-quantile "
+                    "tenants and durability, then one JSON line of "
+                    "profiles and reports; "
                     "to profile "
                     "another checkout, copy this script to its root")
+    ap.add_argument("--durable-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
+    if args.durable_child is not None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return durable_child(json.loads(args.durable_child))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2374,16 +2748,17 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: IEEE
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/9] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/10] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/9] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/10] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -2397,17 +2772,17 @@ def main(argv=None) -> int:
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/9] CPU (plain versions) vs card (kernels) parity")
+        log("[4/10] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
         k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
-        log(f"[5/9] timings, {smi}")
+        log(f"[5/10] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/9] kernel checks against the plain versions on the card: "
+    log("[3/10] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
         "saturated / infinite / NaN projections bit-equal, and with a "
@@ -2526,8 +2901,9 @@ def main(argv=None) -> int:
     errs["simhash_pack"] = max(errs["simhash_pack"],
                                check_simhash_shapes(gen16))
     check_simhash_batch_invariance(gen16)
+    check_nan_queries()
 
-    log("[4/9] CPU (plain versions) vs card (kernels) parity")
+    log("[4/10] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
     k2_p1_inputs = None
@@ -2535,7 +2911,7 @@ def main(argv=None) -> int:
         k2_p1_inputs = parity_run("l1-qmc")
         parity_run("w2-quantile")
 
-    log("[5/9] timings (median of CUDA events over "
+    log("[5/10] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn, k2_p1_inputs)
@@ -2554,6 +2930,8 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    log(f"smoke wall {time.perf_counter() - t_start:.1f}s (from the card "
+        "check, the build included)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 The JAX package resolves kernel modes from the platform and env knobs
 (``repro/kernels/dispatch.py:61-135``).  The port keeps one rule and no
-knobs: a tensor on a CUDA device goes to the hand-written kernel, a tensor
-on the CPU goes to the kernel's plain PyTorch version.  Nothing sends a
-CUDA tensor to the plain version -- a kernel that cannot build or launch
-raises.
+kernel knobs: a tensor on a CUDA device goes to the hand-written kernel, a
+tensor on the CPU goes to the kernel's plain PyTorch version.  Nothing
+sends a CUDA tensor to the plain version -- a kernel that cannot build or
+launch raises.  The one knob read here is the storage tier's,
+``$REPRO_STORE_DTYPE`` (:func:`store_dtype`).
 
 Entry points (index, segments, servables, the launcher) take a ``device``
 argument resolved by :func:`resolve_device`: ``None`` means the card, and
@@ -21,6 +22,7 @@ read-modify-write that threads can interleave.
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import Counter
 
@@ -30,9 +32,9 @@ KERNELS = ("hash_mm", "dct_mm", "fused_query", "merge", "quantized_query",
            "rerank", "simhash_pack")
 
 # Sealed-segment storage precision tiers (``repro/kernels/dispatch.py:41``).
-# The JAX package's $REPRO_STORE_DTYPE override is not ported: the port's
-# dispatch reads no environment.
 STORE_DTYPES = ("fp32", "bf16", "int8")
+
+_ENV_STORE = "REPRO_STORE_DTYPE"
 
 launches: Counter = Counter({name: 0 for name in KERNELS})
 _launches_lock = threading.Lock()
@@ -50,6 +52,20 @@ def reset_launches() -> None:
     with _launches_lock:
         for name in KERNELS:
             launches[name] = 0
+
+
+def store_dtype(override: str | None = None) -> str:
+    """Resolve the sealed-segment storage tier: ``$REPRO_STORE_DTYPE`` >
+    ``override`` (a tenant spec's ``precision``) > ``"fp32"``, as the JAX
+    package's ``store_dtype``.  The operator's variable wins over the
+    spec; the registry resolves it once, at registration, and records the
+    result in the WAL REGISTER record and every snapshot, so recovery
+    never reads the environment again."""
+    mode = os.environ.get(_ENV_STORE) or override or "fp32"
+    if mode not in STORE_DTYPES:
+        raise ValueError(
+            f"unknown store dtype {mode!r}; want one of {STORE_DTYPES}")
+    return mode
 
 
 def resolve_device(device=None) -> torch.device:

@@ -2,8 +2,12 @@
 
 The port of ``repro/kernels/quantize.py`` (the storage-precision tier):
 sealed segments may hold their rows at reduced precision -- ``bf16`` (a
-cast) or ``int8`` (symmetric, one scale per segment: ``scale = max|x| /
-127``, ``code = round(x / scale)``) -- while the mutable delta stays fp32.
+cast) or ``int8`` (symmetric, one scale per segment: ``scale = max|x| *
+f32(1/127)``, ``code = round(x / scale)``) -- while the mutable delta stays
+fp32.  The scale is a multiply by the f32 reciprocal, not a division: the
+JAX package writes ``max|x| / 127.0``, and XLA folds a division by a
+constant into that multiply, so these are the JAX package's scale bits (a
+true division differs by one ulp in some 4% of segments).
 
 Candidate scoring against a quantized segment maps the query into code
 space once and computes L^p between codes widened in registers (K5,
@@ -15,6 +19,7 @@ rows (K6 for the distances, the K3 network for the order).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import ops
@@ -26,6 +31,7 @@ PRECISIONS = ("fp32", "bf16", "int8")
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 _WIDTHS = {"fp32": 4, "bf16": 2, "int8": 1}
+_INV_127 = float(np.float32(1) / np.float32(127))   # an f32 value, exact
 
 
 def storage_dtype(precision: str) -> torch.dtype:
@@ -45,14 +51,15 @@ def encode(db: torch.Tensor, precision: str
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """fp32 rows -> (codes, scale () f32) at ``precision``.
 
-    int8: ``scale = max|x| / 127`` (1 for an all-zero segment), ``codes =
-    clip(round(x / scale), -127, 127)`` with true division and round half
-    to even.  bf16: a cast with scale 1.  fp32 never encodes.  Non-finite
-    rows must be refused upstream: their codes are undefined."""
+    int8: ``scale = max|x| * f32(1/127)`` (1 for an all-zero segment; the
+    JAX package's bits, see the module docstring), ``codes = clip(round(x
+    / scale), -127, 127)`` with true division and round half to even.
+    bf16: a cast with scale 1.  fp32 never encodes.  Non-finite rows must
+    be refused upstream: their codes are undefined."""
     if precision == "int8":
         x = db.float()
         amax = torch.max(torch.abs(x)) if x.numel() else x.new_zeros(())
-        scale = torch.where(amax > 0, amax / 127.0,
+        scale = torch.where(amax > 0, amax * _INV_127,
                             torch.ones_like(amax)).to(torch.float32)
         codes = torch.clamp(torch.round(x / scale), -127, 127)
         return codes.to(torch.int8), scale

@@ -7,6 +7,9 @@
     python -m repro_torch.launch.serve --precision int8      # int8 tier
     python -m repro_torch.launch.serve --device cpu --n-items 0 --steps 40 \
         --delete-frac 0.9 --compact-at 0.3                  # compacts
+    python -m repro_torch.launch.serve --device cpu --wal-dir W --snapshot S
+    python -m repro_torch.launch.serve --device cpu --wal-dir W --restore S
+    python -m repro_torch.launch.serve --device cpu --standby W  # SIGTERM
 
 The port of the scripted demo loop of ``repro/launch/serve.py``.  It
 serves the JAX demo's tenants (``default_specs``): ``l2-basis`` (p = 2,
@@ -29,14 +32,27 @@ run as a whole, device memory and the kernels' launch counts.
 
 Each tenant draws its data from its own generator, seeded ``seed + i``
 with i its place in ``TENANTS`` (the JAX demo shares one), so a tenant
-holds the same items whichever other tenants are served.  WAL, snapshots
-and sharding are not ported yet; the defaults keep the JAX demo's shapes.
+holds the same items whichever other tenants are served.  The defaults
+keep the JAX demo's shapes.
+
+Durability, with the JAX launcher's meanings: ``--wal-dir DIR`` logs every
+tenant's mutations to ``DIR/<name>.wal`` (group commit every
+``--fsync-every`` records); ``--snapshot DIR`` checkpoints every tenant at
+the end; ``--restore DIR`` starts from a snapshot, and with ``--wal-dir``
+too goes through ``ServableRegistry.recover`` (the newest verifiable
+snapshot plus the WAL tail) and prints each tenant's recovery report; a
+restored tenant is served as it was restored.  ``--standby WAL_DIR`` runs
+a warm standby instead: it tails a primary's WAL directory until SIGTERM
+(or SIGINT), then promotes and prints the failover report.  Logs and
+snapshots are the JAX package's format.  Sharding is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
+import threading
 import time
 
 import numpy as np
@@ -166,7 +182,9 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
                                                  precision=precision)}
     svs, rngs = {}, {}
     for name in sorted(names):
-        svs[name] = registry.register(specs[name])
+        # a tenant the registry already holds (restored) is served as is
+        svs[name] = (registry.get(name) if name in registry.names()
+                     else registry.register(specs[name]))
         rngs[name] = np.random.default_rng(seed + TENANTS.index(name))
     inserted = {name: [] for name in svs}
     compactions = {name: 0 for name in svs}
@@ -301,9 +319,41 @@ def main(argv=None) -> dict:
                     choices=dispatch.STORE_DTYPES,
                     help="sealed-segment storage tier: fp32 is exact, "
                          "bf16/int8 are bounded-loss with an exact fp32 "
-                         "survivor rerank")
+                         "survivor rerank ($REPRO_STORE_DTYPE wins)")
+    ap.add_argument("--snapshot", default=None,
+                    help="checkpoint every tenant here at the end")
+    ap.add_argument("--restore", default=None,
+                    help="start from the snapshot here")
+    ap.add_argument("--wal-dir", default=None,
+                    help="log every tenant's mutations under this dir "
+                         "(with --restore: crash recovery, snapshot + WAL "
+                         "tail)")
+    ap.add_argument("--fsync-every", type=int, default=None,
+                    help="WAL group-commit interval in records (1: every "
+                         "record, 0: only at snapshots; default "
+                         "$REPRO_WAL_FSYNC_EVERY or 8)")
+    ap.add_argument("--standby", default=None, metavar="WAL_DIR",
+                    help="run as a warm standby: tail this WAL directory, "
+                         "promote on SIGTERM and print the failover report")
     args = ap.parse_args(argv)
-    report = run(device=args.device,
+    if args.standby:
+        return standby(args.standby, device=args.device,
+                       fsync_every=args.fsync_every)
+    registry = ServableRegistry(device=args.device, wal_dir=args.wal_dir,
+                                fsync_every=args.fsync_every)
+    if args.restore and args.wal_dir:
+        reports = registry.recover(ckpt_root=args.restore,
+                                   wal_dir=args.wal_dir)
+        for name, rep in sorted(reports.items()):
+            print(f"[serve] recovered {name}: "
+                  f"step={rep.get('restored_step')} "
+                  f"replayed={rep.get('applied', 0)} "
+                  f"dup_dropped={rep.get('dropped_duplicates', 0)} "
+                  f"truncated={rep.get('truncated', False)}")
+    elif args.restore:
+        print(f"[serve] restored tenants {registry.restore(args.restore)} "
+              f"from {args.restore}")
+    report = run(registry=registry,
                  tenants=[t for t in args.tenants.split(",") if t],
                  n_items=args.n_items, steps=args.steps,
                  insert_batch=args.insert_batch,
@@ -314,6 +364,15 @@ def main(argv=None) -> dict:
                  n_dims=args.n_dims, segment_capacity=args.segment_capacity,
                  recall_probe_size=args.recall_probe_size, seed=args.seed,
                  precision=args.precision)
+    if args.snapshot:
+        registry.snapshot(args.snapshot, step=args.steps)
+        print(f"[serve] snapshot -> {args.snapshot}")
+    for name in registry.names():
+        wal = registry.get(name).index.wal
+        if wal is not None:
+            s = wal.stats()
+            print(f"[serve] wal {name}: {s['offset']}B "
+                  f"appends={s['appends']} fsyncs={s['syncs']}")
     for name, rep in report.items():
         print(f"[serve] {name}: live={rep['n_live']} "
               f"segments={rep['n_segments']} "
@@ -324,6 +383,27 @@ def main(argv=None) -> dict:
     print("[serve] report:", json.dumps(report))
     print("[serve] OK")
     return report
+
+
+def standby(wal_dir: str, device=None, fsync_every=None) -> dict:
+    """Warm-standby mode: tail ``wal_dir`` until SIGTERM or SIGINT, then
+    promote; returns the promotion reports."""
+    from ..serve.standby import WalStandby
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    sb = WalStandby(wal_dir, device=device, fsync_every=fsync_every)
+    sb.start()
+    print(f"[serve] standby tailing {wal_dir}", flush=True)
+    stop.wait()
+    reports = sb.promote()
+    for name, rep in sorted(reports.items()):
+        print(f"[serve] promoted {name}: applied={rep.get('applied', 0)} "
+              f"offset={rep.get('end_offset', 0)} "
+              f"truncated={rep.get('truncated', False)}")
+    print(f"[serve] standby promoted: tenants {sb.registry.names()}")
+    print("[serve] OK", flush=True)
+    return reports
 
 
 if __name__ == "__main__":

@@ -20,13 +20,16 @@ threads launch their kernels on the same (default) stream of the index's
 card, so the shadow's tensors are complete, in stream order, before any
 query that the swap lets read them.
 
+With a WAL attached, ``seal()`` logs a SEAL record (then the ``seal``
+fault site) and ``compact()``'s freeze a COMPACT record (then
+``compact.freeze``; ``compact.swap`` fires before the swap), so a replay
+re-runs them (``SegmentedIndex._maint_seal`` / ``_compact_freeze``).
+
 Not ported yet: the ``set_replication`` kind, the ``auto`` re-placement
-and ``refresh_placement`` (multi-device serving), the WAL's SEAL and
-COMPACT records and fault sites (durability), the wire ``maintenance``
-verb (network front-end) and the pool's metrics
+and ``refresh_placement`` (multi-device serving), the wire
+``maintenance`` verb (network front-end) and the pool's metrics
 (``maintenance_jobs_total``, ``maintenance_job_latency_s``,
-``maintenance_queue_depth``: telemetry) -- ROADMAP queue 1, items 6, 4, 5
-and 7.
+``maintenance_queue_depth``: telemetry).
 """
 
 from __future__ import annotations

@@ -1,32 +1,58 @@
 """Servable registry: named endpoints over segmented indexes.
 
-The port of ``repro/serve/registry.py`` without WAL, checkpoints or meshes
-(and without the ``$REPRO_STORE_DTYPE`` override: a tenant's
-precision is its spec's).  A :class:`ServableSpec` is the declarative
-tenant config; a :class:`Servable` is the live endpoint (embedder +
-segmented index + micro-batcher + stats) on one device; the
-:class:`ServableRegistry` maps names to servables.
+The port of ``repro/serve/registry.py`` on one device.  A
+:class:`ServableSpec` is the declarative tenant config; a
+:class:`Servable` is the live endpoint (embedder + segmented index +
+micro-batcher + stats); the :class:`ServableRegistry` maps names to
+servables and owns durability:
+
+* ``wal_dir``: every tenant logs its mutations to ``<wal_dir>/<name>.wal``
+  (``serve/wal.py``), which opens with a REGISTER record of its spec;
+* ``snapshot`` / ``restore``: per-tenant checkpoints (``checkpoint/``)
+  under ``<root>/<name>/step_*``, whose tree and manifest are the JAX
+  package's, so either package restores the other's snapshots;
+* ``recover``: the newest verifiable snapshot plus a replay of the WAL
+  tail -- the answers of the run that never crashed (invariant 7);
+* ``adopt``: a tenant from another process's REGISTER record, verbatim
+  (the warm standby, ``serve/standby.py``).
+
+``register`` resolves the storage tier once (``dispatch.store_dtype``:
+``$REPRO_STORE_DTYPE`` wins over the spec), and the resolved tier is what
+the REGISTER record and every snapshot carry.
 
 The hash family comes from ``torch.Generator().manual_seed(spec.seed)``;
 it cannot match the JAX package's ``jax.random.PRNGKey(spec.seed)`` draw,
-so ``family=`` injects one (tests hand both packages the same arrays).
+so ``family=`` injects one (tests hand both packages the same arrays).  A
+snapshot carries its family in its segments; a REGISTER record carries
+none, so a tenant rebuilt from the log alone draws it from its seed again
+(the JAX package's logs replay with ``SegmentedIndex.replay`` into an index
+built with the injected family).  ``shard_axis`` and ``replication`` are
+kept in the spec so that the records and manifests are the JAX package's;
+any value but their one-device defaults is refused.  Not ported yet:
+``log_lifecycle`` and ``unregister`` (the network front-end's lifecycle),
+and the WAL and checkpoint metrics and spans (telemetry).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.index import IndexConfig
+from ..checkpoint import checkpoint as ckpt
+from ..checkpoint.checkpoint import ArraySpec
+from ..core.index import IndexConfig, LSHIndexState
 from ..embedders import embedder_names, make_embedder
-from ..kernels import dispatch
+from ..kernels import dispatch, quantize
+from . import faults, wal as walmod
 from .batcher import MicroBatcher
 from .maintenance import ServableMaintenance
-from .segments import SegmentedIndex
+from .segments import Segment, SegmentedIndex
 from .stats import ServingStats, occupancy_report, store_report
 
 
@@ -50,6 +76,11 @@ class ServableSpec:
     chunk_sizes: Tuple[int, ...] = (8, 32, 128)
     max_delay_ms: float = 5.0
     seed: int = 0
+    # the JAX package's placement fields, kept so that a spec's records and
+    # manifests are byte for byte the JAX package's; only their one-device
+    # values are accepted
+    shard_axis: Optional[str] = None
+    replication: str = "none"
     # sealed-segment storage tier: "fp32" (exact, the default) | "bf16" |
     # "int8" (bounded-loss, survivor-reranked)
     precision: str = "fp32"
@@ -64,6 +95,12 @@ class ServableSpec:
             raise ValueError(
                 f"precision must be one of {dispatch.STORE_DTYPES}, "
                 f"got {self.precision!r}")
+        if (self.shard_axis, self.replication) != (None, "none"):
+            raise ValueError(
+                f"shard_axis={self.shard_axis!r} replication="
+                f"{self.replication!r}: placement across devices is not "
+                "ported yet (one device: shard_axis None, replication "
+                "'none')")
 
     def index_config(self) -> IndexConfig:
         return IndexConfig(n_dims=self.n_dims, n_tables=self.n_tables,
@@ -71,6 +108,17 @@ class ServableSpec:
                            log2_buckets=self.log2_buckets,
                            bucket_capacity=self.bucket_capacity,
                            r=self.r, p=self.p)
+
+
+def _spec_from_manifest(raw: Dict[str, Any]) -> ServableSpec:
+    """A ServableSpec from a manifest's or a REGISTER record's dict:
+    unknown keys are dropped (a newer build's spec still restores) and
+    JSON lists are re-tupled where the dataclass wants tuples."""
+    known = {f.name for f in dataclasses.fields(ServableSpec)}
+    kw = {k: v for k, v in raw.items() if k in known}
+    if "chunk_sizes" in kw:
+        kw["chunk_sizes"] = tuple(kw["chunk_sizes"])
+    return ServableSpec(**kw)
 
 
 class Servable:
@@ -159,18 +207,63 @@ class Servable:
 
 
 class ServableRegistry:
-    """Name -> Servable map; every tenant lives on ``device``."""
+    """Name -> Servable map; every tenant lives on ``device``.
 
-    def __init__(self, *, device=None):
+    ``wal_dir``: when set, each tenant logs every mutation to
+    ``<wal_dir>/<name>.wal`` before applying it, and :meth:`recover`
+    replays snapshot + WAL tail after a crash.  ``fsync_every``: the WAL's
+    group-commit interval (default ``$REPRO_WAL_FSYNC_EVERY``, 8).
+    """
+
+    def __init__(self, *, device=None, wal_dir: Optional[str] = None,
+                 fsync_every: Optional[int] = None):
         self.device = dispatch.resolve_device(device)
         self._servables: Dict[str, Servable] = {}
+        self._wal_dir = wal_dir
+        self._fsync_every = fsync_every
+        self._lock = threading.Lock()
+
+    def _wal_path(self, name: str) -> Optional[str]:
+        return (os.path.join(self._wal_dir, f"{name}.wal")
+                if self._wal_dir else None)
 
     def register(self, spec: ServableSpec, family=None) -> Servable:
+        """Build the tenant.  Its storage tier is resolved here, once
+        (``$REPRO_STORE_DTYPE`` wins); with a ``wal_dir`` its log opens
+        with the resolved spec's REGISTER record, synced, so recovery
+        without a snapshot can rebuild it."""
+        resolved = dispatch.store_dtype(spec.precision)
+        if resolved != spec.precision:
+            spec = dataclasses.replace(spec, precision=resolved)
+        with self._lock:
+            sv = self._register(spec, family)
+            wpath = self._wal_path(spec.name)
+            if wpath is not None:
+                wal = walmod.WriteAheadLog(wpath,
+                                           fsync_every=self._fsync_every)
+                wal.append(walmod.encode_register(dataclasses.asdict(spec)))
+                wal.sync()
+                sv.index.attach_wal(wal)
+            return sv
+
+    def _register(self, spec: ServableSpec, family=None) -> Servable:
+        """Build and record the servable (callers hold the lock; no WAL)."""
         if spec.name in self._servables:
             raise ValueError(f"servable {spec.name!r} already registered")
         sv = Servable(spec, device=self.device, family=family)
         self._servables[spec.name] = sv
         return sv
+
+    def adopt(self, spec: ServableSpec, family=None) -> Servable:
+        """Register a tenant from a spec already resolved and logged by
+        another process (the warm standby): the tier is not re-resolved and
+        nothing is written to any WAL."""
+        with self._lock:
+            return self._register(spec, family)
+
+    def _drop(self, name: str) -> None:
+        with self._lock:
+            self._servables.pop(name, None)
 
     def get(self, name: str) -> Servable:
         try:
@@ -184,3 +277,211 @@ class ServableRegistry:
     def report(self) -> dict:
         return {name: sv.report() for name, sv in
                 sorted(self._servables.items())}
+
+    # -- persistence --------------------------------------------------------
+
+    def snapshot(self, root: str, step: int = 0, keep: int = 3) -> str:
+        """Atomic per-tenant checkpoints under ``root/<name>/step_*``.
+
+        The tree is the JAX package's: ``{"segments": [{"state": [alpha,
+        b, mix (uint32), table, counts, db], "gids", "live"}, ...]}``, a
+        quantized sealed segment adding its ``scale`` and fp32 survivor
+        ``pool``; the manifest's ``extra`` holds the spec, ``next_gid`` and
+        each segment's counts.  A WAL-backed tenant also syncs its log and
+        records the offset (``wal_offset``) replay resumes from.  Tensors
+        are copied to the host under the index lock (so the arrays, the
+        counters and the offset describe one instant) and written with no
+        lock held."""
+        for name, sv in list(self._servables.items()):
+            idx = sv.index
+            # per-tenant crash point: some tenants snapshotted, others not
+            faults.fire("snapshot")
+            with idx._lock:
+                tree = {"segments": [_segment_tree(seg)
+                                     for seg in idx.segments]}
+                extra = {
+                    "spec": dataclasses.asdict(sv.spec),
+                    "next_gid": idx._next_gid,
+                    "segments": [{"n_items": s.n_items, "n_live": s.n_live,
+                                  "sealed": s.sealed,
+                                  "quantized": s.scale is not None}
+                                 for s in idx.segments],
+                    "shard_layout": None,
+                }
+                if idx.wal is not None:
+                    idx.wal.sync()
+                    extra["wal_offset"] = idx.wal.offset
+                host = ckpt.to_host(tree)
+            ckpt.save_host(os.path.join(root, name), step, host, keep=keep,
+                           extra=extra)
+        return root
+
+    def restore(self, root: str, step: Optional[int] = None) -> List[str]:
+        """Load every tenant checkpoint under ``root`` (its newest step, or
+        ``step``); returns the restored names.  No WAL replay: ``recover``
+        is the crash path."""
+        restored = []
+        for name in sorted(os.listdir(root)):
+            tdir = os.path.join(root, name)
+            if not os.path.isdir(tdir):
+                continue
+            s = ckpt.latest_step(tdir) if step is None else step
+            if s is None:
+                continue
+            self._restore_tenant(tdir, s)
+            restored.append(name)
+        return restored
+
+    def _restore_tenant(self, tdir: str, s: int) -> Servable:
+        """Rebuild one tenant from checkpoint step ``s`` (integrity-checked:
+        raises CheckpointCorruptError on damage, and the half-built tenant
+        is dropped)."""
+        extra = ckpt.load_extra(tdir, s)
+        spec = _spec_from_manifest(extra["spec"])
+        with self._lock:
+            sv = self._register(spec)
+        seg_meta = extra["segments"]
+        try:
+            # read on the host: the pool stays there, mix widens to int64
+            tree = ckpt.restore(tdir, s, {"segments": [
+                _segment_target(spec, m.get("quantized", False))
+                for m in seg_meta]}, device="cpu")
+        except BaseException:
+            self._drop(spec.name)
+            raise
+        dev = self.device
+        segments = []
+        for payload, meta in zip(tree["segments"], seg_meta):
+            alpha, b, mix, table, counts, db = payload["state"]
+            scale = payload.get("scale")
+            segments.append(Segment(
+                state=LSHIndexState(
+                    alpha=alpha.to(dev), b=b.to(dev),
+                    mix=mix.to(torch.int64).to(dev), table=table.to(dev),
+                    counts=counts.to(dev), db=db.to(dev)),
+                gids=payload["gids"].to(dev), live=payload["live"].to(dev),
+                n_items=meta["n_items"], n_live=meta["n_live"],
+                sealed=meta["sealed"],
+                scale=None if scale is None else scale.to(dev),
+                pool=(payload["pool"].numpy() if "pool" in payload
+                      else None)))
+        # the family is segment 0's (alpha, b, mix), as the JAX package's
+        sv.index.load_segments(segments, extra["next_gid"])
+        return sv
+
+    def recover(self, ckpt_root: Optional[str] = None,
+                wal_dir: Optional[str] = None,
+                replay_from: str = "offset") -> Dict[str, dict]:
+        """Crash recovery: the newest verifiable snapshot + a WAL replay.
+
+        For every tenant under ``ckpt_root`` and/or ``wal_dir``:
+
+        1. restore the newest checkpoint step that passes its checks -- a
+           corrupt step is reported and the next older one tried;
+        2. with no usable snapshot, rebuild it from its log's REGISTER
+           record and replay from byte 0;
+        3. replay the WAL from the snapshot's ``wal_offset``
+           (``replay_from="offset"``) or from the start (``"start"``:
+           replayed inserts drop by gid, the rest is idempotent);
+        4. cut a torn or corrupt tail off the log and reattach it, so the
+           recovered tenant keeps logging to the same file.
+
+        A tenant whose log ends in an "unloaded" LIFECYCLE record is
+        skipped.  Returns per-tenant reports: the replay report plus
+        ``restored_step`` and ``corrupt_steps``."""
+        if replay_from not in ("offset", "start"):
+            raise ValueError(f"replay_from must be 'offset' or 'start', "
+                             f"got {replay_from!r}")
+        wal_dir = wal_dir if wal_dir is not None else self._wal_dir
+        names = set()
+        if ckpt_root and os.path.isdir(ckpt_root):
+            names.update(n for n in os.listdir(ckpt_root)
+                         if os.path.isdir(os.path.join(ckpt_root, n)))
+        if wal_dir and os.path.isdir(wal_dir):
+            names.update(n[:-len(".wal")] for n in os.listdir(wal_dir)
+                         if n.endswith(".wal"))
+        reports: Dict[str, dict] = {}
+        for name in sorted(names):
+            report: dict = {"restored_step": None, "corrupt_steps": []}
+            wpath = os.path.join(wal_dir, f"{name}.wal") if wal_dir else None
+            has_wal = wpath is not None and os.path.exists(wpath)
+            if has_wal and walmod.read_last_lifecycle(wpath) == "unloaded":
+                # detached on purpose, not lost in the crash
+                reports[name] = dict(report, skipped="unloaded")
+                continue
+            sv, offset = None, 0
+            tdir = os.path.join(ckpt_root, name) if ckpt_root else None
+            if tdir is not None and os.path.isdir(tdir):
+                for s in reversed(ckpt.steps(tdir)):
+                    try:
+                        sv = self._restore_tenant(tdir, s)
+                    except ckpt.CheckpointCorruptError as e:
+                        report["corrupt_steps"].append([s, str(e)])
+                        continue
+                    offset = int(ckpt.load_extra(tdir, s).get("wal_offset",
+                                                              0))
+                    report["restored_step"] = s
+                    break
+            if sv is None:
+                if not has_wal:
+                    continue               # nothing restorable for it
+                raw = walmod.read_spec(wpath)
+                if raw is None:
+                    report["error"] = "no snapshot and no REGISTER record"
+                    reports[name] = report
+                    continue
+                with self._lock:
+                    sv = self._register(_spec_from_manifest(raw))
+                offset = 0
+            if has_wal:
+                rep = sv.index.replay(
+                    wpath, start=0 if replay_from == "start" else offset)
+                report.update(rep)
+                if rep["truncated"]:
+                    # appends behind a bad frame would be invisible to
+                    # every later replay
+                    with open(wpath, "rb+") as f:
+                        f.truncate(rep["end_offset"])
+                    report["truncated_to"] = rep["end_offset"]
+                sv.index.attach_wal(walmod.WriteAheadLog(
+                    wpath, fsync_every=self._fsync_every))
+            reports[name] = report
+        return reports
+
+
+def _segment_tree(seg: Segment) -> dict:
+    """One segment's snapshot leaves, the JAX package's tree."""
+    st = seg.state
+    tree = {"state": [st.alpha, st.b,
+                      st.mix.cpu().numpy().astype(np.uint32), st.table,
+                      st.counts, st.db],
+            "gids": seg.gids, "live": seg.live}
+    if seg.scale is not None:
+        tree["scale"] = seg.scale
+        tree["pool"] = seg.pool
+    return tree
+
+
+def _segment_target(spec: ServableSpec, quantized: bool) -> dict:
+    """:func:`_segment_tree`'s shapes and dtypes, for ``ckpt.restore``: a
+    quantized sealed segment holds codes, a scale and the fp32 pool."""
+    cfg = spec.index_config()
+    cap, n = spec.segment_capacity, spec.n_dims
+    lk = cfg.n_tables * cfg.n_hashes
+    db_dt = (quantize.storage_dtype(spec.precision) if quantized
+             else torch.float32)
+    target = {
+        "state": [ArraySpec((n, lk), torch.float32),
+                  ArraySpec((lk,), torch.float32),
+                  ArraySpec((cfg.n_tables, cfg.n_hashes), torch.uint32),
+                  ArraySpec((cfg.n_tables, cfg.n_buckets,
+                             cfg.bucket_capacity), torch.int32),
+                  ArraySpec((cfg.n_tables, cfg.n_buckets), torch.int32),
+                  ArraySpec((cap, n), db_dt)],
+        "gids": ArraySpec((cap,), torch.int32),
+        "live": ArraySpec((cap,), torch.bool),
+    }
+    if quantized:
+        target["scale"] = ArraySpec((), torch.float32)
+        target["pool"] = ArraySpec((cap, n), torch.float32)
+    return target

@@ -33,7 +33,16 @@ The port of ``repro/serve/segments.py`` on one device:
   segment's rows against its own scale) for its top ``m`` survivors,
   merges them (K3), gathers their fp32 rows from the pool and rescores
   them exactly (K6 + K3).  The delta stays fp32, and an fp32 tenant
-  builds no codes, scales or pools (invariant 10).
+  builds no codes, scales or pools (invariant 10);
+* **durability**: with a write-ahead log attached (``attach_wal``) every
+  mutation -- insert, delete, an explicit seal, a compaction's freeze, a
+  replication policy -- is framed and appended before it is applied, and
+  ``replay`` / ``apply_records`` re-apply a log idempotently (duplicate
+  gids drop and are counted; delete, seal and compact are idempotent), so
+  snapshot + WAL tail answers as the run that never crashed (invariant 7);
+* a query row holding a NaN or an infinity answers ``(-1, +inf)`` in every
+  slot on either device: its NaN and +-inf entries are zeroed before any
+  kernel runs and its answer blanked after, so K1-K3 never see them.
 
 Every segment shares ONE hash family, so an item's buckets do not depend
 on which segment holds it, and (with no bucket overflowing) a segmented
@@ -59,6 +68,7 @@ from ..core import index as lidx
 from ..core.index import IndexConfig, LSHIndexState
 from ..kernels import dispatch, ops, quantize
 from ..sharding.placement import SegmentStack
+from . import faults, wal as walmod
 
 
 @dataclasses.dataclass
@@ -138,6 +148,14 @@ class SegmentedIndex:
         # delete ledger a compaction opens at freeze and re-applies at swap
         self._maintenance = None
         self._compact_deletes: Optional[set] = None
+        # durability: with a WAL attached every mutation is appended before
+        # it is applied; _wal_mute silences mutations that follow from a
+        # logged record (replay itself)
+        self._wal: Optional[walmod.WriteAheadLog] = None
+        self._wal_mute = False
+        # the replication policy a SET_REPLICATION record set: kept, with
+        # no placement effect on one device
+        self.replication = None
         self._open_segment()
 
     # -- lifecycle ----------------------------------------------------------
@@ -185,8 +203,17 @@ class SegmentedIndex:
         self._maint_seal()
 
     def _maint_seal(self) -> None:
-        """Seal the current delta (no-op if empty) and open a fresh one."""
+        """Seal the current delta (no-op if empty) and open a fresh one.
+
+        Logged as an explicit SEAL record; the seal ``insert`` makes when
+        the delta fills is not logged (replaying the INSERT reproduces
+        it)."""
         with self._lock:
+            if self.delta.n_items == 0:
+                return
+            self._log(walmod.encode_seal())
+            # crash point: the SEAL record is framed, nothing applied yet
+            faults.fire("seal")
             self._seal()
 
     def _seal(self) -> None:
@@ -219,6 +246,115 @@ class SegmentedIndex:
                 f"quantize to {self.precision} at seal")
         codes, scale = quantize.encode(seg.state.db, self.precision)
         return codes, scale, pool
+
+    # -- durability ---------------------------------------------------------
+
+    def attach_wal(self, wal: Optional[walmod.WriteAheadLog]) -> None:
+        """Log every later mutation to ``wal`` (None detaches)."""
+        with self._lock:
+            self._wal = wal
+
+    @property
+    def wal(self) -> Optional[walmod.WriteAheadLog]:
+        return self._wal
+
+    def _logging(self) -> bool:
+        return self._wal is not None and not self._wal_mute
+
+    def _log(self, payload: bytes) -> None:
+        """Append one record (write-ahead: callers log, then apply, under
+        the lock, so the log's order is the apply order)."""
+        if self._logging():
+            self._wal.append(payload)
+
+    def replay(self, wal_path: str, start: int = 0) -> dict:
+        """Apply the WAL records in ``wal_path`` from byte ``start``.
+
+        Duplicate-gid inserts (records this index already holds: a replay
+        over a restored snapshot, or after a partial apply) are dropped
+        and counted; deletes, seals and compactions are idempotent.  The
+        scan stops at the first bad frame.  Returns ``read_wal``'s report
+        plus ``applied`` (records applied) and ``dropped_duplicates``.
+        Appends nothing to the attached WAL."""
+        records, report = walmod.read_wal(wal_path, start=start)
+        return dict(report, **self.apply_records(records))
+
+    def apply_records(self, records) -> dict:
+        """Apply decoded WAL records (the replay core, which the warm
+        standby feeds as it tails a live log).  Returns ``{"applied",
+        "dropped_duplicates"}``."""
+        out = {"applied": 0, "dropped_duplicates": 0}
+        with self._lock:
+            self._wal_mute = True
+            try:
+                for rec in records:
+                    if rec.op == walmod.OP_INSERT:
+                        gids = np.asarray(rec.gids, np.int32)
+                        fresh = np.fromiter(
+                            (g not in self._locator for g in gids.tolist()),
+                            bool, gids.size)
+                        out["dropped_duplicates"] += int((~fresh).sum())
+                        if fresh.any():
+                            self.insert(rec.embeddings[fresh],
+                                        gids=gids[fresh])
+                    elif rec.op == walmod.OP_DELETE:
+                        self.delete(rec.gids)
+                    elif rec.op == walmod.OP_SEAL:
+                        self._seal()
+                    elif rec.op == walmod.OP_COMPACT:
+                        self._maint_compact()
+                    elif rec.op == walmod.OP_SET_REPLICATION:
+                        self._maint_set_replication(rec.value)
+                    # REGISTER and LIFECYCLE are the registry's: no-ops
+                    out["applied"] += 1
+            finally:
+                self._wal_mute = False
+        return out
+
+    def _maint_set_replication(self, replication) -> None:
+        """Log and keep a replication policy (None, an int, or factors per
+        sealed segment).  One device: it places nothing."""
+        with self._lock:
+            if replication is not None and not isinstance(replication, int):
+                replication = tuple(int(f) for f in replication)
+            self._log(walmod.encode_set_replication(replication))
+            self.replication = replication
+
+    def load_segments(self, segments: Sequence[Segment],
+                      next_gid: int) -> None:
+        """Replace the index's contents by ``segments`` (a snapshot's, in
+        order, every one sealed but the last), rebuilding the stack and
+        the locator.  The family becomes segment 0's, and every segment
+        must hold the same one."""
+        family = tuple(t.to(self.device) for t in (
+            segments[0].state.alpha, segments[0].state.b,
+            segments[0].state.mix))
+        with self._lock:
+            for seg in segments:
+                st = seg.state
+                if not all(torch.equal(a, b) for a, b in zip(
+                        (st.alpha, st.b, st.mix), family)):
+                    raise ValueError("segments hold different hash "
+                                     "families")
+                seg.state = dataclasses.replace(
+                    st, alpha=family[0], b=family[1], mix=family[2])
+            self.family = family
+            self._stack = SegmentStack(
+                self.cfg, self.segment_capacity,
+                quantize.storage_dtype(self.precision),
+                self.precision != "fp32", self.device)
+            self.segments = []
+            self._locator = {}
+            for seg in segments:
+                if seg.sealed:
+                    self._stack.seal(seg, seg.state.db, seg.scale, seg.pool)
+                si = len(self.segments)
+                self.segments.append(seg)
+                for slot, g in enumerate(seg.gids[:seg.n_items].tolist()):
+                    self._locator[g] = (si, slot)
+            if not self.segments or self.delta.sealed:
+                self._open_segment()
+            self._next_gid = int(next_gid)
 
     def layout(self) -> dict:
         """The stack's report: sealed count, slots, bytes."""
@@ -279,13 +415,18 @@ class SegmentedIndex:
             if m:
                 self._next_gid = max(self._next_gid,
                                      int(out_gids.max()) + 1)
+                # write-ahead: the record (resolved gids, the f32 rows as
+                # stored) is in the log before the first row lands
+                if self._logging():
+                    self._log(walmod.encode_insert(out_gids,
+                                                   emb.cpu().numpy()))
             gids_dev = torch.as_tensor(out_gids, device=self.device)
             pos = 0
             while pos < m:
                 seg = self.delta
                 room = seg.capacity - seg.n_items
                 if room == 0:
-                    self._seal()
+                    self._seal()         # not logged: the INSERT replays it
                     continue
                 take = min(m - pos, room, self.insert_chunk)
                 chunk = emb.new_zeros((self.insert_chunk, self.cfg.n_dims))
@@ -306,31 +447,39 @@ class SegmentedIndex:
     def delete(self, gids: Sequence[int]) -> int:
         """Tombstone items by global id; returns how many were live."""
         with self._lock:
-            req = np.asarray(gids).ravel().tolist()
+            req = np.asarray(gids).ravel().astype(np.int32)
+            if req.size:
+                # logged as requested: a delete of dead or unknown gids
+                # replays as a no-op
+                self._log(walmod.encode_delete(req))
             if self._compact_deletes is not None:
                 # a compaction froze its input before this delete: ledger
                 # every requested gid, so the swap re-applies it to the
                 # shadow's copy (re-applying is idempotent)
-                self._compact_deletes.update(int(g) for g in req)
-            by_seg: dict = {}
-            for g in req:
-                loc = self._locator.get(int(g))
-                if loc is not None:
-                    # a set per segment: a gid repeated in one call must
-                    # not count its slot twice
-                    by_seg.setdefault(loc[0], set()).add(loc[1])
-            n = 0
-            for si, slot_set in by_seg.items():
-                seg = self.segments[si]
-                slots = torch.as_tensor(sorted(slot_set), dtype=torch.int64,
-                                        device=self.device)
-                hits = int(seg.live[slots].sum())
-                if hits == 0:
-                    continue
-                seg.live[slots] = False
-                seg.n_live -= hits
-                n += hits
-            return n
+                self._compact_deletes.update(req.tolist())
+            return self._tombstone(req.tolist())
+
+    def _tombstone(self, req: List[int]) -> int:
+        """Apply a delete (callers hold the lock; never logs)."""
+        by_seg: dict = {}
+        for g in req:
+            loc = self._locator.get(int(g))
+            if loc is not None:
+                # a set per segment: a gid repeated in one call must
+                # not count its slot twice
+                by_seg.setdefault(loc[0], set()).add(loc[1])
+        n = 0
+        for si, slot_set in by_seg.items():
+            seg = self.segments[si]
+            slots = torch.as_tensor(sorted(slot_set), dtype=torch.int64,
+                                    device=self.device)
+            hits = int(seg.live[slots].sum())
+            if hits == 0:
+                continue
+            seg.live[slots] = False
+            seg.n_live -= hits
+            n += hits
+        return n
 
     def live_items(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every live item on the device: (embeddings (n_live, N) f32,
@@ -393,8 +542,12 @@ class SegmentedIndex:
         return self._compact_swap(frozen_n, shadow)
 
     def _compact_freeze(self) -> Tuple[int, List[Segment]]:
-        """Phase 1 (locked): make the compaction's input immutable."""
+        """Phase 1 (locked): log COMPACT and make the compaction's input
+        immutable."""
         with self._lock:
+            self._log(walmod.encode_compact())
+            # crash point: COMPACT is framed, nothing applied yet
+            faults.fire("compact.freeze")
             self._seal()                 # no-op when the delta is empty
             frozen = list(self.segments[:-1])
             self._compact_deletes = set()
@@ -443,6 +596,8 @@ class SegmentedIndex:
         (``SegmentStack.rebuild``: slot i = sealed segment i, views
         rebound)."""
         with self._lock:
+            # crash point: the shadow is built, the swap not yet applied
+            faults.fire("compact.swap")
             after = self.segments[frozen_n:]
             if len(after) == 1 and after[0].n_items == 0:
                 self.segments = shadow.segments
@@ -463,7 +618,7 @@ class SegmentedIndex:
                 self._locator = locator
             pending, self._compact_deletes = self._compact_deletes, None
             if pending:
-                self.delete(sorted(pending))
+                self._tombstone(sorted(pending))
             return len(self.segments)
 
     # -- query --------------------------------------------------------------
@@ -474,18 +629,27 @@ class SegmentedIndex:
 
         One stacked query over every segment
         (``core.distributed.query_segments_stacked``); on a quantized tier
-        its stage 1 (see :meth:`_query_quantized`)."""
-        q = self._queries(queries)
+        its stage 1 (see :meth:`_query_quantized`).  A row holding a NaN
+        or an infinity answers (-1, +inf) in every slot."""
+        q, finite = self._queries(queries)
         if self.n_live == 0:
             return self._no_results(q.shape[0], k)
         if self.precision != "fp32":
-            return self._query_quantized(q, k, n_probes)
+            return _blank_rows(*self._query_quantized(q, k, n_probes),
+                               finite)
         with self._lock:
-            return self._query_stacked(q, k, n_probes)
+            return _blank_rows(*self._query_stacked(q, k, n_probes), finite)
 
-    def _queries(self, queries) -> torch.Tensor:
-        return torch.as_tensor(queries, dtype=torch.float32,
-                               device=self.device).contiguous()
+    def _queries(self, queries) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The batch as contiguous f32 on the device with its NaN and
+        +-inf entries zeroed, and the mask of its all-finite rows: no kernel
+        sees a NaN (K3's select route orders none), and :func:`_blank_rows`
+        answers every other row (-1, +inf) afterwards.  Three elementwise
+        ops and two selects a batch, all-finite or not."""
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        finite = torch.isfinite(q).all(dim=1)
+        return (torch.nan_to_num(q, nan=0.0, posinf=0.0, neginf=0.0)
+                .contiguous(), finite)
 
     def _query_stacked(self, q: torch.Tensor, k: int, n_probes: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -503,7 +667,7 @@ class SegmentedIndex:
         tie order does not depend on the segment count).  The stacked
         query's reference: it returns the same bits.  Only the tests and
         the chip smoke's parity phase call it."""
-        q = self._queries(queries)
+        q, finite = self._queries(queries)
         kq = self._survivor_width(k, n_probes)
         with self._lock:
             shards = []
@@ -523,8 +687,8 @@ class SegmentedIndex:
         g, d = _merged(torch.cat([d for _, d in shards], dim=1),
                        torch.cat([g for g, _ in shards], dim=1), kq)
         if self.precision == "fp32":
-            return g, d
-        return self._rescore(q, g, k)
+            return _blank_rows(g, d, finite)
+        return _blank_rows(*self._rescore(q, g, k), finite)
 
     def _no_results(self, nq: int, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -606,6 +770,14 @@ class SegmentedIndex:
 
     def occupancy(self) -> List[dict]:
         return [s.occupancy() for s in self.segments]
+
+
+def _blank_rows(g: torch.Tensor, d: torch.Tensor, finite: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gids, dists) with every row that ``finite`` does not mark set to
+    (-1, +inf)."""
+    rows = finite[:, None]
+    return torch.where(rows, g, -1), torch.where(rows, d, torch.inf)
 
 
 def _merged(dists: torch.Tensor, gids: torch.Tensor, k: int
