@@ -26,7 +26,9 @@ each of which raises on failure (the script then exits non-zero):
    batch sizes; the tie check over 8 seeds; query rows holding a NaN or
    an infinity at fp32 / bf16 / int8, stacked and fanned out: (-1, +inf)
    on the card as on the CPU, the other rows unchanged, no kernel given a
-   NaN);
+   NaN); ``query_index_batched`` at 5,000 rows in 1,024-row chunks on one
+   1,024-item segment, bit-equal to one ``query_index`` call and equal to
+   the plain path on the CPU under the parity contract;
 4. parity: the l2-basis, l1-qmc and w2-quantile pipelines at 8,192 items
    on the CPU (plain versions) and on the card (kernels) with one
    injected family each, and l2-basis at the int8 tier (whose gids must
@@ -84,9 +86,25 @@ each of which raises on failure (the script then exits non-zero):
    process, and a second replay must drop duplicates and change no bit.
    It prints the snapshot's bytes and seconds, WAL bytes per inserted
    item, replay rows/s, the recovery's wall, and ingest rows/s with no
-   WAL and at fsync_every 1, 8 and 0.
+   WAL and at fsync_every 1, 8 and 0, and beside them the telemetry's
+   counters, which must agree: ``wal_bytes_total`` and
+   ``wal_appends_total`` with the WAL file's bytes and records, one
+   ``ckpt_saves_total``, ``standby_replayed_records_total`` with the
+   standby's polls, one promotion, and in each recovering child
+   ``recovery_replayed_records_total`` with its tail records and one
+   restore;
+11. telemetry, on phase 6's fp32 tenant at 262,144 items (it runs right
+   after phase 6, before phase 7): with ``obs.configure(sample_rate=1.0,
+   deep=True)`` (restored after), 20 staged 32-row and 5 staged 128-row
+   batches through the batcher, each bit-equal to ``_query_stacked`` on
+   its rows; the median microseconds of the hash, probe, gather, rerank
+   and merge spans and of the batch span; the stage spans must cover >=
+   90% of their batch spans, summed over the 25 batches; then an
+   ``Exporter`` flush whose every line must match the port's ``CATALOG``
+   (name, type, label keys), with every required metric present but the
+   multi-device ``serve_device_wins_total``.
 
-Launch counts are read around each of phases 6-10.
+Launch counts are read around each of phases 6-11.
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -98,7 +116,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2 and 6-10 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-11 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -1202,7 +1220,81 @@ def check_nan_queries(n_items=3000, rows=32):
     return n_checked
 
 
+def check_query_batched(rows=5000, batch=1024, k=10, n_probes=4):
+    """``core.index.query_index_batched``: ``rows`` queries in ``batch``-row
+    chunks (the last zero-padded) on one 1,024-item segment, bit-equal
+    (ids and distance bits) to one ``query_index`` call over the same rows,
+    one K1 and one K2 launch a chunk, and equal to the plain path on the
+    CPU under the parity contract: every row that differs explained by a
+    bucket boundary (the row's or a differing id's projection within
+    1e-4 + 1e-6 |p| of an integer), ids equal at distinct distances and
+    distances rtol 1e-5 atol 1e-6 elsewhere.  A checkout without it skips."""
+    import torch
+    from repro_torch.core import index as lidx
+    from repro_torch.kernels import dispatch, ref
+    if not hasattr(lidx, "query_index_batched"):
+        log("  query_index_batched: not in this checkout")
+        return
+    gen = torch.Generator().manual_seed(23)
+    cfg = lidx.IndexConfig(n_dims=64, n_tables=8, n_hashes=4,
+                           log2_buckets=10, bucket_capacity=32, r=4.0)
+    x = torch.randn((1024, 64), generator=gen) * 0.3
+    q = x[torch.randint(0, 1024, (rows,), generator=gen)] + 0.01 * \
+        torch.randn((rows, 64), generator=gen)
+    fam = lidx.make_family(gen, cfg)
+    st = lidx.build_index(lidx.create_index(cfg, 1024, family=fam,
+                                            device="cuda"), cfg, x.cuda())
+    before = dict(dispatch.launches)
+    bi, bd = lidx.query_index_batched(st, cfg, q, k, n_probes=n_probes,
+                                      batch_size=batch)
+    chunks = -(-rows // batch)
+    got = {n: dispatch.launches[n] - before[n]
+           for n in ("hash_mm", "fused_query")}
+    if got != {"hash_mm": chunks, "fused_query": chunks}:
+        raise AssertionError(f"query_index_batched launched {got} for "
+                             f"{chunks} chunks")
+    oi, od = lidx.query_index(st, cfg, q, k, n_probes=n_probes)
+    if not (torch.equal(bi, oi) and torch.equal(bd.view(torch.int32),
+                                                od.view(torch.int32))):
+        raise AssertionError("query_index_batched differs from one "
+                             "query_index call over the same rows")
+    st_c = lidx.build_index(lidx.create_index(cfg, 1024, family=fam,
+                                              device="cpu"), cfg, x)
+    pi, pd = lidx.query_index(st_c, cfg, q, k, n_probes=n_probes)
+    bi, bd = bi.cpu(), bd.cpu()
+    near = lambda v: near_boundary(ref.hash_mm_proj_ref(  # noqa: E731
+        v, fam[0], fam[1], cfg.r)[1]).any(dim=-1)
+    near_item = near(x)
+    ok = ~near(q)
+    for r in torch.nonzero((bi != pi).any(dim=1)).flatten().tolist():
+        diff = set(bi[r].tolist()) ^ set(pi[r].tolist())
+        if ok[r] and any(i >= 0 and bool(near_item[i]) for i in diff):
+            ok[r] = False
+    fin = torch.isfinite(pd[ok])
+    if not torch.equal(fin, torch.isfinite(bd[ok])) or not torch.allclose(
+            bd[ok][fin], pd[ok][fin], rtol=1e-5, atol=1e-6):
+        raise AssertionError("query_index_batched: distances differ from "
+                             "the plain path's")
+    close = torch.isclose(pd[ok][:, 1:], pd[ok][:, :-1], rtol=1e-5, atol=0)
+    distinct = torch.ones_like(fin)
+    distinct[:, 1:] &= ~close
+    distinct[:, :-1] &= ~close
+    if not torch.equal(bi[ok][distinct], pi[ok][distinct]):
+        raise AssertionError("query_index_batched: ids differ from the "
+                             "plain path's at distinct distances")
+    log(f"  query_index_batched: {rows} rows in {chunks} chunks of {batch} "
+        f"on one 1,024-item segment: bit-equal to one query_index call, "
+        f"K1 and K2 {chunks} launches each; vs the plain path: "
+        f"{int((~ok).sum())} rows near a bucket boundary set aside, the "
+        f"other {int(ok.sum())} equal")
+
+
 # -- phase 4: CPU vs card parity ----------------------------------------------
+
+
+def has_telemetry() -> bool:
+    """Does this checkout have the port's telemetry (``repro_torch.obs``)?"""
+    return (ROOT / "src" / "repro_torch" / "obs").is_dir()
 
 
 def has_tenants() -> bool:
@@ -2017,6 +2109,142 @@ def stacked_parity(sv, prof, tier, n_probe=64):
         "batch, gids and distance bits equal to the per-segment fan-out; "
         f"launches per profiled batch {per}")
 
+# -- phase 11: telemetry -----------------------------------------------------
+
+
+TELEMETRY_STAGES = ("hash", "probe", "gather", "rerank", "merge")
+TELEMETRY_BATCHES = ((32, 20), (128, 5))     # (rows, batches), deep-traced
+# catalog metrics only a multi-device serve emits (device wins per mesh
+# device): the one required metric a one-device run cannot export
+DEVICE_ONLY = {"serve_device_wins_total"}
+
+
+def telemetry_phase(sv, card, smi):
+    """Phase 11, on phase 6's fp32 tenant: ``configure(sample_rate=1.0,
+    deep=True)`` (restored after), then the deep-traced batches of
+    TELEMETRY_BATCHES through the tenant's batcher, each bit-equal (gids
+    and distance bits) to ``_query_stacked`` on the same rows; the median
+    microseconds of each stage span and of the batch span; the stage spans
+    must cover >= 90% of their parent batch spans (summed over the phase's
+    batches; each batch size's share is reported too);
+    then a WAL-backed tenant's insert and snapshot, and an ``Exporter``
+    flushed into a temporary directory, every line validated against the
+    port's ``CATALOG`` (name, type, label keys) and every required metric
+    present but the multi-device ones.  Returns the numbers."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.obs import CATALOG, Exporter, configure, tracer
+    from repro_torch.serve import ServableRegistry
+    idx = sv.index
+    rng = np.random.default_rng(11)
+    batches = [sv.embed(probe_inputs(sv, rng, rows)).cpu().numpy()
+               for rows, n in TELEMETRY_BATCHES for _ in range(n)]
+    tr = tracer()
+    saved = (tr.sample_rate, tr.deep)
+    tr.drain()
+    answers = []
+    try:
+        configure(sample_rate=1.0, deep=True)
+        for q in batches:
+            fut = sv.submit_query(q, 10, 4)
+            sv.batcher.flush_all()
+            answers.append(fut.result())
+    finally:
+        configure(sample_rate=saved[0], deep=saved[1])
+        spans = [x for x in tr.drain()
+                 if x["attrs"].get("tenant") == sv.spec.name]
+    for q, (g, d) in zip(batches, answers):
+        with idx._lock:
+            wg, wd = idx._query_stacked(torch.as_tensor(q, device="cuda"),
+                                        10, 4)
+        if not same((g, d.view(np.int32)), (wg.cpu().numpy(),
+                                            wd.cpu().numpy().view(np.int32))):
+            raise AssertionError(f"telemetry: a staged {q.shape[0]}-row "
+                                 "batch differs from _query_stacked")
+    dur = lambda x: (x["t1"] - x["t0"]) * 1e6  # noqa: E731  (us)
+    kids: dict = {}
+    for x in spans:
+        if x["name"] in TELEMETRY_STAGES:
+            kids.setdefault(x["parent_id"], []).append(x)
+    res = {"tenant": sv.spec.name, "items": idx.n_live,
+           "segments": len(idx.segments)}
+    for rows, n in TELEMETRY_BATCHES:
+        bs = [x for x in spans if x["name"] == "batch"
+              and x["attrs"]["rows_real"] == rows]
+        if len(bs) != n or any(sorted(c["name"] for c in kids.get(
+                b["span_id"], ())) != sorted(TELEMETRY_STAGES) for b in bs):
+            raise AssertionError(f"telemetry: {len(bs)} {rows}-row batch "
+                                 f"spans, want {n} each with one span per "
+                                 "stage")
+        fracs = [sum(dur(c) for c in kids[b["span_id"]]) / dur(b)
+                 for b in bs]
+        first = lambda b: min(c["t0"] for c in kids[b["span_id"]])  # noqa
+        last = lambda b: max(c["t1"] for c in kids[b["span_id"]])  # noqa
+        cover = sum(sum(dur(c) for c in kids[b["span_id"]]) for b in bs) / \
+            sum(dur(b) for b in bs)
+        res[f"{rows}_rows"] = {
+            "batches": n,
+            "median_us": {
+                **{st: statistics.median(
+                    dur(c) for b in bs for c in kids[b["span_id"]]
+                    if c["name"] == st) for st in TELEMETRY_STAGES},
+                "batch": statistics.median(dur(b) for b in bs)},
+            "stage_cover": cover, "stage_cover_min": min(fracs),
+            "stage_cover_median": statistics.median(fracs),
+            # the batch span's time outside its stages: before the first,
+            # after the last
+            "before_stages_us": statistics.median(
+                (first(b) - b["t0"]) * 1e6 for b in bs),
+            "after_stages_us": statistics.median(
+                (b["t1"] - last(b)) * 1e6 for b in bs)}
+    batch_spans = [x for x in spans if x["name"] == "batch"]
+    res["stage_cover"] = sum(
+        sum(dur(c) for c in kids[b["span_id"]]) for b in batch_spans) / \
+        sum(dur(b) for b in batch_spans)
+    log(f"  [{card}, {smi.split(',')[-1].strip()}] telemetry spans "
+        + json.dumps(res))
+    if res["stage_cover"] < 0.90:
+        raise AssertionError(f"telemetry: stage spans cover "
+                             f"{res['stage_cover']:.1%} of their batch "
+                             "spans (< 90%)")
+    with tempfile.TemporaryDirectory(prefix="telemetry-") as tmp:
+        reg = ServableRegistry(device="cuda", wal_dir=f"{tmp}/wal")
+        small = reg.register(dataclasses.replace(tenant_spec("l2-basis"),
+                                                 name="telemetry-wal"))
+        small.insert(small.embed(probe_inputs(small, rng, 512)))
+        reg.snapshot(f"{tmp}/ckpt", step=1)
+        exp = Exporter.for_directory(f"{tmp}/metrics")
+        exp.flush()
+        exp.close()
+        lines = [json.loads(x) for x in
+                 Path(f"{tmp}/metrics/metrics.jsonl").read_text()
+                 .splitlines()]
+    seen, bad = set(), []
+    for x in lines:
+        if x["kind"] != "metric":
+            continue
+        spec = CATALOG.get(x["name"])
+        if spec is None or x["type"] != spec.type or sorted(
+                x["labels"]) != sorted(spec.labels) or (
+                ("count" not in x) if spec.type == "histogram"
+                else ("value" not in x)):
+            bad.append(x)
+        seen.add(x["name"])
+    missing = sorted(n for n, sp in CATALOG.items()
+                     if sp.required and n not in seen | DEVICE_ONLY)
+    if bad or missing:
+        raise AssertionError(f"telemetry export: {len(bad)} lines off the "
+                             f"catalog (first {bad[:1]}), required metrics "
+                             f"missing {missing}")
+    res["export"] = {"lines": len(lines), "metrics": len(seen),
+                     "required_missing_device_only": sorted(DEVICE_ONLY)}
+    log(f"  [{card}, {smi.split(',')[-1].strip()}] telemetry "
+        + json.dumps(res))
+    return res
+
+
 # -- phase 8: compaction ------------------------------------------------------
 
 
@@ -2271,7 +2499,7 @@ def run_paths(card, smi):
     import torch
 
     from repro_torch.serve import ServableRegistry
-    log(f"[6/10] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/11] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve_run(
@@ -2281,8 +2509,19 @@ def run_paths(card, smi):
     prof = profile_batches(registry.get("l2-basis"))
     check_report(report, "fp32")
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
+    runs_extra, telemetry = [], None
+    if has_telemetry():
+        log(f"[11/11] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
+            "(before phase 7): deep-traced staged batches, their stage "
+            "spans, the export against the catalog")
+        counts11, telemetry = drive(lambda: telemetry_phase(
+            registry.get("l2-basis"), card, smi), card, smi, FP32_PATH,
+            "telemetry")
+        runs_extra.append(counts11)
+    else:
+        log("[11/11] telemetry: this checkout has no obs package")
 
-    log(f"[7/10] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/11] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -2298,7 +2537,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/10] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/11] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -2319,7 +2558,9 @@ def run_paths(card, smi):
                  "compaction": comp},
         "int8": {"profile": prof8, **{k: report8[k] for k in keep},
                  "compaction": comp8}}
-    runs = [counts, counts8, counts7, counts_c, counts_c8]
+    runs = [counts, counts8, counts7, counts_c, counts_c8] + runs_extra
+    if telemetry is not None:
+        paths["telemetry"] = telemetry
     # phase 9 holds two more 262,144-item tenants: let phases 6-8's go
     del registry, reg8, sv32, sv8
     gc.collect()
@@ -2328,11 +2569,11 @@ def run_paths(card, smi):
         counts9, paths["tenants"] = tenants_phase(card, smi)
         runs += counts9
     else:
-        log("[9/10] tenants: this checkout serves l2-basis only")
+        log("[9/11] tenants: this checkout serves l2-basis only")
     gc.collect()
     torch.cuda.empty_cache()
     if hasattr(ServableRegistry, "recover"):
-        log(f"[10/10] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
+        log(f"[10/11] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
             f"a snapshot and a warm standby, then {DURABLE_STEPS} steps; "
             "kill -9 at wal.append and at compact.swap in children, each "
             "recovered in a fresh child; fp32 then int8")
@@ -2344,7 +2585,7 @@ def run_paths(card, smi):
             runs.append(c)
         log(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[10/10] durability: this checkout has no WAL")
+        log("[10/11] durability: this checkout has no WAL")
     counts_all = {name: sum(c[name] for c in runs) for name in counts}
     return counts_all, paths
 
@@ -2406,7 +2647,7 @@ def tenants_phase(card, smi):
     from repro_torch.launch import w2_gate
     from repro_torch.serve import ServableRegistry
     names = ("l1-qmc", "w2-quantile")
-    log(f"[9/10] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+    log(f"[9/11] tenants: repro_torch.launch.serve, {', '.join(names)}, "
         f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
         "int8")
     params = {"mu": np.zeros(0), "sig": np.zeros(0)}
@@ -2526,6 +2767,29 @@ def durable_workload(reg, precision, ckpt_dir, between_steps=None):
     return sv, fill_s, snapshot_s
 
 
+DURABLE_COUNTERS = ("wal_appends_total", "wal_bytes_total", "wal_fsyncs_total",
+                    "ckpt_saves_total", "ckpt_restores_total",
+                    "recovery_replayed_records_total",
+                    "recovery_restores_total",
+                    "standby_replayed_records_total",
+                    "standby_promotions_total")
+
+
+def counters(tenant="l2-basis"):
+    """The durability counters of ``tenant`` in this process's metrics
+    registry ({} in a checkout without telemetry)."""
+    try:
+        from repro_torch.obs import metrics as obs_metrics
+    except ImportError:
+        return {}
+    reg = obs_metrics.registry()
+    return {n: reg.value(n, tenant=tenant) or 0.0 for n in DURABLE_COUNTERS}
+
+
+def counter_delta(before, after):
+    return {n: after[n] - before[n] for n in after}
+
+
 def durable_probes(sv):
     """The phase's 64 probe rows (fresh functions, embedded)."""
     return sv.embed(probe_inputs(sv, np.random.default_rng(4242),
@@ -2548,10 +2812,12 @@ def durable_child(job: dict) -> int:
         print("SURVIVED", flush=True)
         return 3
     reg = ServableRegistry(device="cuda")
+    before = counters()
     t0 = time.perf_counter()
     reports = reg.recover(ckpt_root=job["ckpt"], wal_dir=job["wal"])
     torch.cuda.synchronize()
     recover_s = time.perf_counter() - t0
+    rec_counters = counter_delta(before, counters())
     sv = reg.get("l2-basis")
     probes = durable_probes(sv)
     first = answer(sv.index, probes)
@@ -2566,6 +2832,8 @@ def durable_child(job: dict) -> int:
     Path(job["out"] + ".json").write_text(json.dumps({
         "recover_s": recover_s, "restored_step": rep["restored_step"],
         "replayed_records": rep.get("applied"),
+        "tail_records": rep.get("n_records"),
+        "counters": {n: v for n, v in rec_counters.items() if v},
         "truncated": rep.get("truncated"),
         "second_replay_dropped": again["dropped_duplicates"],
         "n_live": sv.index.n_live}))
@@ -2624,6 +2892,16 @@ def crash_and_recover(tmp, precision, site, nth):
     if child["n_live"] != ref.index.n_live or (want[0] < 0).all():
         raise AssertionError(f"durability ({precision}): {child} vs "
                              f"{ref.index.n_live} live")
+    got_c = child.get("counters")
+    if got_c is not None and (
+            got_c.get("recovery_replayed_records_total")
+            != child["tail_records"]
+            or got_c.get("recovery_restores_total") != 1
+            or got_c.get("ckpt_restores_total") != 1):
+        raise AssertionError(f"durability ({precision}): the recovery's "
+                             f"counters {got_c} disagree with its report "
+                             f"({child['tail_records']} tail records, one "
+                             "restore)")
     return {"site": f"{site}#{nth}", **child,
             "durable_records": rep["n_records"],
             "reference_replay_s": replay_s,
@@ -2666,17 +2944,18 @@ def durability_phase(card, smi, precision):
     import tempfile
 
     import torch
-    from repro_torch.serve import ServableRegistry, WalStandby
+    from repro_torch.serve import ServableRegistry, WalStandby, wal
     with tempfile.TemporaryDirectory(prefix="durability-") as tmp:
         wal_dir, ckpt_dir = Path(tmp) / "wal", Path(tmp) / "ckpt"
         reg = ServableRegistry(device="cuda", wal_dir=str(wal_dir))
         standby = WalStandby(str(wal_dir), device="cuda")
-        lags = []
+        lags, applied = [], []
 
         def tail(step):
             if step % 5 == 4:
-                standby.poll_once()
+                applied.append(standby.poll_once()["l2-basis"]["applied"])
                 lags.append(standby.lag().get("l2-basis"))
+        before = counters()
         sv, fill_s, snapshot_s = durable_workload(reg, precision,
                                                   str(ckpt_dir), tail)
         probes = durable_probes(sv)
@@ -2691,6 +2970,18 @@ def durability_phase(card, smi, precision):
             raise AssertionError(f"durability ({precision}): the promoted "
                                  "standby differs from the primary")
         wal_bytes = (wal_dir / "l2-basis.wal").stat().st_size
+        delta = counter_delta(before, counters())
+        n_records = wal.read_wal(str(wal_dir / "l2-basis.wal"))[1][
+            "n_records"]
+        want_c = {"wal_bytes_total": wal_bytes,
+                  "wal_appends_total": n_records, "ckpt_saves_total": 1,
+                  "standby_replayed_records_total": sum(applied),
+                  "standby_promotions_total": 1}
+        if delta and any(delta[n] != v for n, v in want_c.items()):
+            raise AssertionError(f"durability ({precision}): counters "
+                                 f"{delta} disagree with the WAL's "
+                                 f"{wal_bytes} bytes and {n_records} "
+                                 f"records and the standby's {applied}")
         inserted = MAIN_ITEMS + DURABLE_STEPS * 64
         snap_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
                          if f.is_file())
@@ -2709,6 +3000,8 @@ def durability_phase(card, smi, precision):
            "standby_lag_bytes_after_polls": lags,
            "standby_promote_s": promote_s,
            "standby_promote_applied": promoted["applied"],
+           "standby_poll_applied": applied,
+           "counters": {n: v for n, v in delta.items() if v},
            "crashes": crashes, "ingest_rows_per_s": ingest}
     log(f"  [{card}, {smi.split(',')[-1].strip()}] durability ({precision}) "
         + json.dumps(res))
@@ -2727,13 +3020,12 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2 and 6-10 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-11 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
-                    "the compactions, the l1-qmc and w2-quantile "
-                    "tenants and durability, then one JSON line of "
-                    "profiles and reports; "
-                    "to profile "
-                    "another checkout, copy this script to its root")
+                    "the telemetry, the compactions, the l1-qmc and "
+                    "w2-quantile tenants and durability, then one JSON "
+                    "line of profiles and reports; to profile another "
+                    "checkout, copy this script to its root")
     ap.add_argument("--durable-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
@@ -2751,14 +3043,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/10] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/11] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/10] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/11] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -2772,17 +3064,17 @@ def main(argv=None) -> int:
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/10] CPU (plain versions) vs card (kernels) parity")
+        log("[4/11] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
         k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
-        log(f"[5/10] timings, {smi}")
+        log(f"[5/11] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/10] kernel checks against the plain versions on the card: "
+    log("[3/11] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
         "saturated / infinite / NaN projections bit-equal, and with a "
@@ -2902,8 +3194,9 @@ def main(argv=None) -> int:
                                check_simhash_shapes(gen16))
     check_simhash_batch_invariance(gen16)
     check_nan_queries()
+    check_query_batched()
 
-    log("[4/10] CPU (plain versions) vs card (kernels) parity")
+    log("[4/11] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
     k2_p1_inputs = None
@@ -2911,7 +3204,7 @@ def main(argv=None) -> int:
         k2_p1_inputs = parity_run("l1-qmc")
         parity_run("w2-quantile")
 
-    log("[5/10] timings (median of CUDA events over "
+    log("[5/11] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn, k2_p1_inputs)

@@ -30,8 +30,14 @@ arrays, and read back the same way.  :func:`restore` takes a tree of
 tensors on ``device``.
 
 Fault site (``serve/faults.py``): ``ckpt.rename`` fires after the temp dir
-is fully written, before the rename.  The JAX package's checkpoint metrics
-and spans wait for the port's telemetry.
+is fully written, before the rename.
+
+Telemetry, as the JAX package's, labelled by the checkpoint directory's
+basename (the registry's tenant name): a write runs under a ``ckpt.save``
+span and counts ``ckpt_saves_total`` and ``ckpt_save_latency_s``; a
+restore runs under ``ckpt.restore`` and counts ``ckpt_restores_total``
+and ``ckpt_restore_latency_s``; every failed check (``verify``,
+``restore``, the garbage collector's) counts ``ckpt_corrupt_total``.
 """
 
 from __future__ import annotations
@@ -47,8 +53,16 @@ import numpy as np
 import torch
 
 from ..kernels import dispatch
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 
 _SEP = "/"
+
+
+def _tenant(ckpt_dir: str) -> str:
+    """The metric and span label of a checkpoint directory: its basename
+    (the registry checkpoints each tenant under ``<root>/<name>``)."""
+    return os.path.basename(os.path.normpath(ckpt_dir)) or "default"
 
 
 class ArraySpec(NamedTuple):
@@ -166,6 +180,19 @@ def save_host(ckpt_dir: str, step: int, flat: dict, keep: int = 3,
               extra: Optional[dict] = None) -> str:
     """:func:`save` of a tree already copied to the host by
     :func:`to_host`."""
+    tenant = _tenant(ckpt_dir)
+    tr = obs_trace.tracer()
+    t0 = tr.clock()
+    with tr.span("ckpt.save", tenant=tenant, step=int(step)):
+        final = _save_body(ckpt_dir, step, flat, keep, extra)
+    reg = obs_metrics.registry()
+    reg.inc("ckpt_saves_total", tenant=tenant)
+    reg.observe("ckpt_save_latency_s", tr.clock() - t0, tenant=tenant)
+    return final
+
+
+def _save_body(ckpt_dir: str, step: int, flat: dict, keep: int,
+               extra: Optional[dict]) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp-{step}")
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
@@ -256,6 +283,15 @@ def verify(ckpt_dir: str, step: int, deep: bool = True) -> dict:
     :class:`CheckpointCorruptError`.  ``deep`` also loads every array and
     checks its crc32; ``deep=False`` is the manifest-only check ``_gc``
     uses."""
+    try:
+        return _verify_body(ckpt_dir, step, deep)
+    except CheckpointCorruptError:
+        obs_metrics.registry().inc("ckpt_corrupt_total",
+                                   tenant=_tenant(ckpt_dir))
+        raise
+
+
+def _verify_body(ckpt_dir: str, step: int, deep: bool) -> dict:
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     manifest = _read_manifest(path)
     npz_path = os.path.join(path, "arrays.npz")
@@ -342,6 +378,23 @@ def restore(ckpt_dir: str, step: int, target: Any, device=None) -> Any:
     :class:`CheckpointCorruptError`, a key the checkpoint lacks KeyError,
     a shape or dtype that differs ValueError."""
     dev = dispatch.resolve_device(device)
+    tenant = _tenant(ckpt_dir)
+    tr = obs_trace.tracer()
+    t0 = tr.clock()
+    reg = obs_metrics.registry()
+    try:
+        with tr.span("ckpt.restore", tenant=tenant, step=int(step)):
+            out = _restore_body(ckpt_dir, step, target, dev)
+    except CheckpointCorruptError:
+        reg.inc("ckpt_corrupt_total", tenant=tenant)
+        raise
+    reg.inc("ckpt_restores_total", tenant=tenant)
+    reg.observe("ckpt_restore_latency_s", tr.clock() - t0, tenant=tenant)
+    return out
+
+
+def _restore_body(ckpt_dir: str, step: int, target: Any,
+                  dev: torch.device) -> Any:
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     manifest = _read_manifest(path)
     npz_path = os.path.join(path, "arrays.npz")

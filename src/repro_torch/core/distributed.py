@@ -19,14 +19,25 @@ package's staged engine, ``repro/serve/segments.py:177-202``), and:
    K3 ``merge_topk`` takes the top k of the (nq, S * k + k) pool.
 
 A kernel launch count that does not grow with the segment count: K1 once,
-K2/K5 once or twice, K3 once.  The answer is the per-segment fan-out's bit
-for bit: each row's candidates, distances and tie order are its segment's
-own, and the merge's (distance, gid) order is total.
+K2/K5 once or twice, K3 once.
+
+The five steps are the JAX staged engine's stages -- ``hash`` (K1),
+``probe``, ``gather`` (the stack's and the delta's), ``rerank`` (the
+stacked launch and the delta's) and ``merge`` (K3) -- each run inside
+``stage(name)``, a no-op unless the caller passes one: the deep-traced
+query (``SegmentedIndex.query``) passes a span that syncs the device at its
+end, so the staged form is this very function, in this order, with the
+same launches and the same bits.
+
+The answer is the per-segment fan-out's bit for bit: each row's
+candidates, distances and tie order are its segment's own, and the
+merge's (distance, gid) order is total.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -34,9 +45,16 @@ from ..kernels import ops
 from . import index as lidx
 from .index import IndexConfig
 
+_NO_STAGE = contextlib.nullcontext()
+
+
+def _no_stage(name: str):
+    return _NO_STAGE
+
 
 def query_segments_stacked(stack, delta, family, cfg: IndexConfig,
-                           q: torch.Tensor, k: int, n_probes: int = 1
+                           q: torch.Tensor, k: int, n_probes: int = 1,
+                           stage: Optional[Callable] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k-NN over ``stack``'s sealed segments and the ``delta`` segment.
 
@@ -44,7 +62,8 @@ def query_segments_stacked(stack, delta, family, cfg: IndexConfig,
     with per-segment scales through K5, whose distances are approximate:
     the serve layer rescores them); delta: the mutable ``Segment`` (fp32),
     or None; family: (alpha, b, mix) shared by every segment; q (nq, N)
-    f32 on the stack's device.  Returns (gids (nq, k) int32, dists (nq, k)
+    f32 on the stack's device; ``stage(name)`` a context manager around
+    each stage (None: none).  Returns (gids (nq, k) int32, dists (nq, k)
     f32), ascending under the (distance, gid) order, (-1, +inf) padded.
     """
     nq = q.shape[0]
@@ -53,36 +72,46 @@ def query_segments_stacked(stack, delta, family, cfg: IndexConfig,
     if not n_sealed and not with_delta:
         return (torch.full((nq, k), -1, dtype=torch.int32, device=q.device),
                 torch.full((nq, k), torch.inf, device=q.device))
+    stage = _no_stage if stage is None else stage
     alpha, b, mix = family
-    hashes, proj = lidx.hash_stage(alpha, b, cfg, q)
-    buckets = lidx.probe_stage(mix, cfg, hashes, proj, n_probes)
+    with stage("hash"):
+        hashes, proj = lidx.hash_stage(alpha, b, cfg, q)
+    with stage("probe"):
+        buckets = lidx.probe_stage(mix, cfg, hashes, proj, n_probes)
+    with stage("gather"):
+        if n_sealed:
+            table, db, gids, live, scale = stack.sealed()
+            rows = lidx.flat_rows(
+                lidx.gather_stage(table, buckets, cfg, stack.capacity,
+                                  live_mask=live), stack.capacity)
+        if with_delta:
+            delta_cands = lidx.gather_stage(
+                delta.state.table, buckets, cfg, delta.capacity,
+                live_mask=delta.live).contiguous()
     parts_d, parts_g = [], []
-    if n_sealed:
-        table, db, gids, live, scale = stack.sealed()
-        cands = lidx.gather_stage(table, buckets, cfg, stack.capacity,
-                                  live_mask=live)
-        rows = lidx.flat_rows(cands, stack.capacity)
-        q_rep = q.repeat(n_sealed, 1)
-        db_flat = db.reshape(-1, db.shape[-1])
-        if scale is None:
-            dist, ids = ops.fused_query_topk(q_rep, db_flat, rows, k,
-                                             p=cfg.p)
-        else:
-            dist, ids = ops.quantized_query_topk(q_rep, db_flat, scale, rows,
-                                                 k, p=cfg.p)
-        g = lidx._to_gids(ids, gids.reshape(-1))
-        # (S * nq, k) segment-major -> (nq, S * k): segment s's k columns
-        parts_d.append(dist.view(n_sealed, nq, k).transpose(0, 1)
-                       .reshape(nq, n_sealed * k))
-        parts_g.append(g.view(n_sealed, nq, k).transpose(0, 1)
-                       .reshape(nq, n_sealed * k))
-    if with_delta:
-        cands = lidx.gather_stage(delta.state.table, buckets, cfg,
-                                  delta.capacity, live_mask=delta.live)
-        dist, ids = ops.fused_query_topk(q, delta.state.db,
-                                         cands.contiguous(), k, p=cfg.p)
-        parts_d.append(dist)
-        parts_g.append(lidx._to_gids(ids, delta.gids))
-    d, g = ops.merge_topk(torch.cat(parts_d, dim=1),
-                          torch.cat(parts_g, dim=1), k)
+    with stage("rerank"):
+        if n_sealed:
+            q_rep = q.repeat(n_sealed, 1)
+            db_flat = db.reshape(-1, db.shape[-1])
+            if scale is None:
+                dist, ids = ops.fused_query_topk(q_rep, db_flat, rows, k,
+                                                 p=cfg.p)
+            else:
+                dist, ids = ops.quantized_query_topk(q_rep, db_flat, scale,
+                                                     rows, k, p=cfg.p)
+            g = lidx._to_gids(ids, gids.reshape(-1))
+            # (S * nq, k) segment-major -> (nq, S * k): segment s's k
+            # columns
+            parts_d.append(dist.view(n_sealed, nq, k).transpose(0, 1)
+                           .reshape(nq, n_sealed * k))
+            parts_g.append(g.view(n_sealed, nq, k).transpose(0, 1)
+                           .reshape(nq, n_sealed * k))
+        if with_delta:
+            dist, ids = ops.fused_query_topk(q, delta.state.db, delta_cands,
+                                             k, p=cfg.p)
+            parts_d.append(dist)
+            parts_g.append(lidx._to_gids(ids, delta.gids))
+    with stage("merge"):
+        d, g = ops.merge_topk(torch.cat(parts_d, dim=1),
+                              torch.cat(parts_g, dim=1), k)
     return g, d

@@ -345,6 +345,36 @@ def query_index(state: LSHIndexState, cfg: IndexConfig, queries, k: int,
     return ids, dist
 
 
+def query_index_batched(state: LSHIndexState, cfg: IndexConfig, queries,
+                        k: int, n_probes: int = 1,
+                        valid_items: Optional[int] = None,
+                        batch_size: int = 1024,
+                        live_mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`query_index` over a large query set in fixed ``batch_size``
+    chunks (the last one zero-padded, its padding rows sliced off), so
+    every chunk launches K1 and K2 at one shape and the candidate tables
+    stay O(batch_size * C).  At most ``batch_size`` rows: one
+    :func:`query_index` call.  Returns (ids (nq, k), dists (nq, k))."""
+    q = _as_rows(state, queries)
+    nq = q.shape[0]
+    if nq <= batch_size:
+        return query_index(state, cfg, q, k, n_probes, valid_items,
+                           live_mask=live_mask)
+    ids_out, dist_out = [], []
+    for start in range(0, nq, batch_size):
+        chunk = q[start:start + batch_size]
+        take = chunk.shape[0]
+        if take < batch_size:
+            chunk = torch.cat([chunk, chunk.new_zeros(
+                (batch_size - take, chunk.shape[1]))])
+        ids, dist = query_index(state, cfg, chunk, k, n_probes, valid_items,
+                                live_mask=live_mask)
+        ids_out.append(ids[:take])
+        dist_out.append(dist[:take])
+    return torch.cat(ids_out), torch.cat(dist_out)
+
+
 def query_index_gids(state: LSHIndexState, cfg: IndexConfig, queries,
                      k: int, gids: torch.Tensor, n_probes: int = 1,
                      live_mask: Optional[torch.Tensor] = None

@@ -10,6 +10,8 @@
     python -m repro_torch.launch.serve --device cpu --wal-dir W --snapshot S
     python -m repro_torch.launch.serve --device cpu --wal-dir W --restore S
     python -m repro_torch.launch.serve --device cpu --standby W  # SIGTERM
+    python -m repro_torch.launch.serve --device cpu --metrics-dir M \
+        --trace-sample 1.0 --trace-deep                     # telemetry
 
 The port of the scripted demo loop of ``repro/launch/serve.py``.  It
 serves the JAX demo's tenants (``default_specs``): ``l2-basis`` (p = 2,
@@ -45,6 +47,15 @@ restored tenant is served as it was restored.  ``--standby WAL_DIR`` runs
 a warm standby instead: it tails a primary's WAL directory until SIGTERM
 (or SIGINT), then promotes and prints the failover report.  Logs and
 snapshots are the JAX package's format.  Sharding is not ported yet.
+
+Telemetry, with the JAX launcher's meanings: ``--metrics-dir DIR``
+exports the metrics registry and the drained trace spans every loop step
+and at the end, to ``DIR/metrics.jsonl`` (JSON lines, appended) and
+``DIR/metrics.prom`` (Prometheus text, rewritten), which
+``tools/check_metrics_export.py DIR`` validates against the catalog;
+``--trace-sample`` is the share of query traces sampled (default
+``$REPRO_TRACE_SAMPLE`` or 0: off) and ``--trace-deep`` runs sampled fp32
+queries through the staged engine, a span and a device sync per stage.
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ import numpy as np
 import torch
 
 from ..kernels import dispatch
+from ..obs import Exporter, configure as obs_configure
 from ..serve import ServableRegistry, ServableSpec, recall_proxy
 
 TENANTS = ("l2-basis", "l1-qmc", "w2-quantile")
@@ -162,14 +174,16 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
         segment_capacity: int = 1024, recall_probe_size: int = 64,
         self_hit_probes: int = 64, fill_batch: int = 8192, seed: int = 0,
         precision: str = "fp32", registry=None, on_insert=None,
-        log=print) -> dict:
+        exporter=None, log=print) -> dict:
     """Fill, run the demo loop, and return the report: one entry per
     tenant, by name, as ``registry.report()`` gives.  ``tenants`` names
     some of :data:`TENANTS` (None: all three).  The tenants are registered
     in ``registry`` (a fresh one on ``device`` by default), so a caller
     that passes its own can keep querying them afterwards.
     ``on_insert(name, gids, params)``, when given, sees every insert: the
-    gids and, for the Wasserstein tenant, the Gaussians' (mu, sigma)."""
+    gids and, for the Wasserstein tenant, the Gaussians' (mu, sigma).
+    ``exporter`` (an ``obs.Exporter``), when given, is flushed after every
+    loop step."""
     names = TENANTS if tenants is None else tuple(tenants)
     unknown = sorted(set(names) - set(TENANTS))
     if unknown:
@@ -229,6 +243,8 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
             if n_all and (n_all - sv.index.n_live) / n_all > compact_at:
                 sv.maintenance.compact()
                 compactions[name] += 1
+        if exporter is not None:
+            exporter.flush()
     for sv in svs.values():
         sv.batcher.flush_all()
     _sync(dev)
@@ -335,10 +351,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--standby", default=None, metavar="WAL_DIR",
                     help="run as a warm standby: tail this WAL directory, "
                          "promote on SIGTERM and print the failover report")
+    ap.add_argument("--metrics-dir", default=None,
+                    help="export telemetry here every loop step: "
+                         "metrics.jsonl (metric snapshots and trace spans, "
+                         "JSON lines) and metrics.prom (Prometheus text)")
+    ap.add_argument("--trace-sample", type=float, default=None,
+                    help="share of query traces to sample (default "
+                         "$REPRO_TRACE_SAMPLE or 0: tracing off)")
+    ap.add_argument("--trace-deep", action="store_true",
+                    help="run sampled fp32 queries through the staged "
+                         "engine, a span per stage (default "
+                         "$REPRO_TRACE_DEEP)")
     args = ap.parse_args(argv)
+    if args.trace_sample is not None or args.trace_deep:
+        obs_configure(sample_rate=args.trace_sample,
+                      deep=True if args.trace_deep else None)
     if args.standby:
         return standby(args.standby, device=args.device,
                        fsync_every=args.fsync_every)
+    exporter = (Exporter.for_directory(args.metrics_dir)
+                if args.metrics_dir else None)
     registry = ServableRegistry(device=args.device, wal_dir=args.wal_dir,
                                 fsync_every=args.fsync_every)
     if args.restore and args.wal_dir:
@@ -363,10 +395,14 @@ def main(argv=None) -> dict:
                  compact_at=args.compact_at,
                  n_dims=args.n_dims, segment_capacity=args.segment_capacity,
                  recall_probe_size=args.recall_probe_size, seed=args.seed,
-                 precision=args.precision)
+                 precision=args.precision, exporter=exporter)
     if args.snapshot:
         registry.snapshot(args.snapshot, step=args.steps)
         print(f"[serve] snapshot -> {args.snapshot}")
+    if exporter is not None:
+        # the last snapshot holds the final recall probes and the snapshot
+        exporter.close()
+        print(f"[serve] telemetry -> {args.metrics_dir}")
     for name in registry.names():
         wal = registry.get(name).index.wal
         if wal is not None:

@@ -1,14 +1,23 @@
 """Deadline-driven micro-batcher over a fixed chunk-shape palette.
 
-The port's own copy of ``repro/serve/batcher.py`` (telemetry hooks and the
-wall-clock pump thread left out; the front-end that needs the thread is a
-later slice).  Requests with one (k, n_probes) signature share a row buffer;
-a signature flushes when a full largest chunk is queued or its oldest
+The port's own copy of ``repro/serve/batcher.py`` (the wall-clock pump
+thread left out; the front-end that needs the thread is a later slice).
+Requests with one (k, n_probes) signature share a row buffer; a signature
+flushes when a full largest chunk is queued or its oldest
 request's deadline (``max_delay_ms``) passes, and every flush is padded up
 to a palette size, so the index only ever sees ``len(chunk_sizes)`` query
 shapes per signature.  ``submit`` returns a Future; ``pump`` (called by the
 serving loop, or by tests with an injected clock) decides flushes;
 ``flush_all`` drains everything.
+
+Telemetry, as the JAX batcher's: a request's trace starts at admission
+(the submitter's context, or a new one at the sample rate: None when
+sampling is off), its queue wait feeds ``serve_queue_wait_s`` and, when
+sampled, a retroactive ``admission`` span; each padded chunk runs under
+a ``batch`` span attached to the first sampled request's context, so the
+index's stage spans land in a real trace.  ``on_answer`` sees each
+chunk's host ids (its padding rows included) after the batch span and
+the latency (``on_batch``): the serve layer's segment-win attribution.
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+
 # fn(queries_padded (c, N), k, n_probes) -> (ids (c, k), dists (c, k)), numpy
 QueryFn = Callable[[np.ndarray, int, int], Tuple[np.ndarray, np.ndarray]]
 
@@ -32,6 +44,8 @@ class _Pending:
     k: int
     n_probes: int
     deadline: float
+    submitted: float = 0.0
+    ctx: Optional[obs_trace.TraceContext] = None   # admission trace
     future: Future = field(default_factory=Future)
 
 
@@ -42,7 +56,10 @@ class MicroBatcher:
                  chunk_sizes: Sequence[int] = (8, 32, 128),
                  max_delay_ms: float = 5.0,
                  clock: Callable[[], float] = time.monotonic,
-                 on_batch: Optional[Callable[[int, int, float], None]] = None):
+                 on_batch: Optional[Callable[[int, int, float], None]] = None,
+                 on_answer: Optional[Callable[[np.ndarray], None]] = None,
+                 tenant: str = "default",
+                 metrics: Optional[obs_metrics.MetricsRegistry] = None):
         if not chunk_sizes or sorted(chunk_sizes) != list(chunk_sizes):
             raise ValueError("chunk_sizes must be ascending and non-empty")
         self.query_fn = query_fn
@@ -50,6 +67,9 @@ class MicroBatcher:
         self.max_delay = max_delay_ms / 1e3
         self.clock = clock
         self.on_batch = on_batch            # (rows_real, rows_padded, dt)
+        self.on_answer = on_answer          # (ids of the padded chunk,)
+        self.tenant = tenant
+        self.metrics = obs_metrics.registry() if metrics is None else metrics
         self.shape_counts: Counter = Counter()   # (chunk, k, n_probes) -> n
         self.n_requests = 0
         self.n_batches = 0
@@ -61,8 +81,14 @@ class MicroBatcher:
         q = np.asarray(queries, np.float32)
         if q.ndim != 2:
             raise ValueError(f"expected (nq, N) queries, got {q.shape}")
+        now = self.clock()
+        tr = obs_trace.tracer()
+        ctx = tr.current()
+        if ctx is None:
+            ctx = tr.start_trace()
         req = _Pending(queries=q, k=int(k), n_probes=int(n_probes),
-                       deadline=self.clock() + self.max_delay)
+                       deadline=now + self.max_delay, submitted=now,
+                       ctx=ctx)
         with self._lock:
             self._q.setdefault((req.k, req.n_probes), []).append(req)
             self.n_requests += 1
@@ -105,6 +131,19 @@ class MicroBatcher:
         batcher does not."""
         k, n_probes = key
         batches = 0
+        tr = obs_trace.tracer()
+        t_disp = self.clock()
+        # the admission span's times re-based onto the tracer's clock
+        t_tr = tr.clock()
+        for r in reqs:
+            wait = max(t_disp - r.submitted, 0.0)
+            self.metrics.observe("serve_queue_wait_s", wait,
+                                 tenant=self.tenant)
+            if r.ctx is not None and r.ctx.sampled:
+                tr.record("admission", t_tr - wait, t_tr, ctx=r.ctx,
+                          tenant=self.tenant, rows=int(r.queries.shape[0]))
+        ctx = next((r.ctx for r in reqs
+                    if r.ctx is not None and r.ctx.sampled), None)
         try:
             rows = np.concatenate([r.queries for r in reqs])
             total, n_dims = rows.shape
@@ -117,13 +156,22 @@ class MicroBatcher:
                 buf = np.zeros((chunk, n_dims), np.float32)
                 buf[:take] = rows[pos:pos + take]
                 t0 = self.clock()
-                ids, dists = self.query_fn(buf, k, n_probes)
+                if ctx is not None:
+                    with tr.attach(ctx), tr.span(
+                            "batch", tenant=self.tenant, rows_real=take,
+                            rows_padded=chunk, k=k, n_probes=n_probes):
+                        ids, dists = self.query_fn(buf, k, n_probes)
+                else:
+                    ids, dists = self.query_fn(buf, k, n_probes)
                 self.shape_counts[(chunk, k, n_probes)] += 1
                 self.n_batches += 1
                 batches += 1
                 if self.on_batch is not None:
                     self.on_batch(take, chunk, self.clock() - t0)
-                outs_i.append(np.asarray(ids)[:take])
+                ids = np.asarray(ids)
+                if self.on_answer is not None:
+                    self.on_answer(ids)
+                outs_i.append(ids[:take])
                 outs_d.append(np.asarray(dists)[:take])
                 pos += take
             all_i = np.concatenate(outs_i)

@@ -31,8 +31,9 @@ come from the environment, for subprocesses::
     REPRO_FAULTS="wal.append:7:kill,seal:2:raise" python -m repro_torch.launch.serve ...
 
 (``site:nth:action`` tuples, comma-separated; action ``raise`` | ``kill``.)
-The JAX package's ``faults_fired_total`` counter waits for the port's
-telemetry.
+A ``raise`` that fires counts ``faults_fired_total{site}``, published
+through an import inside :func:`fire`, so this module imports nothing of
+the port at load.
 """
 
 from __future__ import annotations
@@ -145,6 +146,10 @@ def fire(site: str) -> None:
         # what was durable
         os.kill(os.getpid(), signal.SIGKILL)
     plan.fired.append(site)
+    # lazy import keeps this module leaf-level; only a fault that fires
+    # pays it
+    from ..obs import metrics as obs_metrics
+    obs_metrics.registry().inc("faults_fired_total", site=site)
     raise InjectedFault(f"injected fault at {site!r} "
                         f"(event #{spec.nth})")
 

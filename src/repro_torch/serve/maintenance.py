@@ -25,11 +25,15 @@ fault site) and ``compact()``'s freeze a COMPACT record (then
 ``compact.freeze``; ``compact.swap`` fires before the swap), so a replay
 re-runs them (``SegmentedIndex._maint_seal`` / ``_compact_freeze``).
 
+The pool publishes, as the JAX pool: ``maintenance_queue_depth`` (jobs
+queued or running) at each submit and each job's end, and at each job's
+end ``maintenance_jobs_total{tenant, kind, status}`` and
+``maintenance_job_latency_s{tenant, kind}`` (dequeue to completion),
+before the job reads as done, so a caller that waited sees them.
+
 Not ported yet: the ``set_replication`` kind, the ``auto`` re-placement
-and ``refresh_placement`` (multi-device serving), the wire
-``maintenance`` verb (network front-end) and the pool's metrics
-(``maintenance_jobs_total``, ``maintenance_job_latency_s``,
-``maintenance_queue_depth``: telemetry).
+and ``refresh_placement`` (multi-device serving) and the wire
+``maintenance`` verb (network front-end).
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ import threading
 import time
 import traceback
 from typing import Any, Dict, Optional
+
+from ..obs import metrics as obs_metrics
 
 #: job kinds the pool accepts
 KINDS = ("seal", "compact")
@@ -150,6 +156,7 @@ class MaintenancePool:
             job = MaintenanceJob(job_id=f"mj-{next(self._ids)}",
                                  tenant=str(tenant), kind=kind)
             self._jobs[job.job_id] = job
+        self._set_depth()
         self._queue.put(job.job_id)
         return job.job_id
 
@@ -204,6 +211,14 @@ class MaintenancePool:
         with self._lock:
             return self._tenant_locks.setdefault(tenant, threading.Lock())
 
+    def _set_depth(self) -> None:
+        """Publish the jobs queued or running (the registry's lock is taken
+        after the pool's is released)."""
+        with self._lock:
+            depth = sum(1 for j in self._jobs.values()
+                        if j.status in ("queued", "running"))
+        obs_metrics.registry().set("maintenance_queue_depth", depth)
+
     def _worker(self) -> None:
         while True:
             job_id = self._queue.get()
@@ -213,6 +228,7 @@ class MaintenancePool:
                 job = self._jobs[job_id]
                 job.status = "running"
             result, error, tb = None, None, None
+            t0 = time.monotonic()
             try:
                 with self._tenant_lock(job.tenant):
                     result = self._run(job)
@@ -220,9 +236,16 @@ class MaintenancePool:
                 # not end the worker; the job keeps the error and traceback
                 error = f"{type(e).__name__}: {e}"
                 tb = traceback.format_exc()
+            status = "failed" if error is not None else "done"
+            reg = obs_metrics.registry()
+            reg.inc("maintenance_jobs_total", tenant=job.tenant,
+                    kind=job.kind, status=status)
+            reg.observe("maintenance_job_latency_s", time.monotonic() - t0,
+                        tenant=job.tenant, kind=job.kind)
             with self._lock:
                 job.result, job.error, job.traceback = result, error, tb
-                job.status = "failed" if error is not None else "done"
+                job.status = status
+            self._set_depth()
 
     def _run(self, job: MaintenanceJob) -> dict:
         sv = self._registry.get(job.tenant)

@@ -28,9 +28,16 @@ none, so a tenant rebuilt from the log alone draws it from its seed again
 (the JAX package's logs replay with ``SegmentedIndex.replay`` into an index
 built with the injected family).  ``shard_axis`` and ``replication`` are
 kept in the spec so that the records and manifests are the JAX package's;
-any value but their one-device defaults is refused.  Not ported yet:
-``log_lifecycle`` and ``unregister`` (the network front-end's lifecycle),
-and the WAL and checkpoint metrics and spans (telemetry).
+any value but their one-device defaults is refused.
+
+Telemetry, as the JAX registry's: each servable's stats, index and
+batcher publish under its name as the ``tenant`` label, ``embed`` runs
+under an ``embed`` span, ``report()`` carries the registry's
+``"metrics"`` summary of the tenant, and ``recover`` runs each restore
+under ``recover.restore`` and each replay under ``recover.replay``,
+counting ``recovery_restores_total`` and
+``recovery_replayed_records_total``.  Not ported yet: ``log_lifecycle``
+and ``unregister`` (the network front-end's lifecycle).
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ from ..checkpoint.checkpoint import ArraySpec
 from ..core.index import IndexConfig, LSHIndexState
 from ..embedders import embedder_names, make_embedder
 from ..kernels import dispatch, quantize
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import faults, wal as walmod
 from .batcher import MicroBatcher
 from .maintenance import ServableMaintenance
@@ -132,27 +141,33 @@ class Servable:
                                       p=spec.p, volume=spec.volume,
                                       params=spec.embedder_params,
                                       device=self.device)
-        self.stats = ServingStats()
+        self.stats = ServingStats(tenant=spec.name)
         self.index = SegmentedIndex(spec.index_config(),
                                     segment_capacity=spec.segment_capacity,
                                     insert_chunk=spec.insert_chunk,
                                     seed=spec.seed, family=family,
                                     precision=spec.precision,
                                     survivor_k=spec.survivor_k,
-                                    device=self.device)
+                                    device=self.device, tenant=spec.name,
+                                    on_fanout=self.stats.record_fanout)
         # the tenant's maintenance handle (seal, compact); the
         # MaintenancePool is its background caller
         self.maintenance = ServableMaintenance(self)
         self.batcher = MicroBatcher(self._raw_query,
                                     chunk_sizes=spec.chunk_sizes,
                                     max_delay_ms=spec.max_delay_ms,
-                                    on_batch=self.stats.record_batch)
+                                    on_batch=self.stats.record_batch,
+                                    on_answer=self.index.fanout_telemetry,
+                                    tenant=spec.name)
 
     def embed(self, fvals) -> torch.Tensor:
         """Function samples (B, len(nodes())) -> (B, n_dims) embeddings on
         the device, through the padded ingest palette."""
-        return self.embedder.embed_batched(
-            fvals, batch_size=max(self.spec.chunk_sizes))
+        with obs_trace.tracer().span("embed", tenant=self.spec.name,
+                                     rows=len(fvals),
+                                     embedder=self.spec.embedder):
+            return self.embedder.embed_batched(
+                fvals, batch_size=max(self.spec.chunk_sizes))
 
     def nodes(self) -> np.ndarray:
         return self.embedder.nodes()
@@ -203,7 +218,11 @@ class Servable:
                             "n_batches": self.batcher.n_batches,
                             "n_requests": self.batcher.n_requests},
                 "occupancy": occ,
-                "store": store_report(self.index)}
+                "store": store_report(self.index),
+                # the registry's view of this tenant: the names the
+                # exporter emits
+                "metrics": obs_metrics.registry().summary(
+                    tenant=self.spec.name)}
 
 
 class ServableRegistry:
@@ -411,16 +430,20 @@ class ServableRegistry:
                 continue
             sv, offset = None, 0
             tdir = os.path.join(ckpt_root, name) if ckpt_root else None
+            tr = obs_trace.tracer()
+            reg = obs_metrics.registry()
             if tdir is not None and os.path.isdir(tdir):
                 for s in reversed(ckpt.steps(tdir)):
                     try:
-                        sv = self._restore_tenant(tdir, s)
+                        with tr.span("recover.restore", tenant=name, step=s):
+                            sv = self._restore_tenant(tdir, s)
                     except ckpt.CheckpointCorruptError as e:
                         report["corrupt_steps"].append([s, str(e)])
                         continue
                     offset = int(ckpt.load_extra(tdir, s).get("wal_offset",
                                                               0))
                     report["restored_step"] = s
+                    reg.inc("recovery_restores_total", tenant=name)
                     break
             if sv is None:
                 if not has_wal:
@@ -434,8 +457,11 @@ class ServableRegistry:
                     sv = self._register(_spec_from_manifest(raw))
                 offset = 0
             if has_wal:
-                rep = sv.index.replay(
-                    wpath, start=0 if replay_from == "start" else offset)
+                start = 0 if replay_from == "start" else offset
+                with tr.span("recover.replay", tenant=name, start=start):
+                    rep = sv.index.replay(wpath, start=start)
+                reg.inc("recovery_replayed_records_total",
+                        int(rep.get("n_records", 0)), tenant=name)
                 report.update(rep)
                 if rep["truncated"]:
                     # appends behind a bad frame would be invisible to

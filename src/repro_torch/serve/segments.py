@@ -42,7 +42,19 @@ The port of ``repro/serve/segments.py`` on one device:
   snapshot + WAL tail answers as the run that never crashed (invariant 7);
 * a query row holding a NaN or an infinity answers ``(-1, +inf)`` in every
   slot on either device: its NaN and +-inf entries are zeroed before any
-  kernel runs and its answer blanked after, so K1-K3 never see them.
+  kernel runs and its answer blanked after, so K1-K3 never see them;
+* **telemetry** (``repro_torch.obs``), as the JAX package's: ``seal`` and
+  ``compact`` spans, the ``store_bytes_per_item`` gauge at each seal and
+  swap (a compaction's shadow publishes as tenant "default", as the JAX
+  package's does), ``rerank_survivor_frac`` from the host survivor gids, and
+  :meth:`SegmentedIndex.fanout_telemetry`, which attributes a merged
+  answer's host gids to segments (one lookup through a gid -> segment
+  array kept beside the locator) and feeds the ``on_fanout`` hook.  Inside
+  a sampled trace with deep tracing on, an fp32 query runs the **staged**
+  form of the stacked query: the same function, each of its stages
+  (``hash``, ``probe``, ``gather``, ``rerank``, ``merge``) under a span
+  that ends with a device sync, so stage times are real.  Nothing of it
+  syncs, or adds an op, at sample 0.
 
 Every segment shares ONE hash family, so an item's buckets do not depend
 on which segment holds it, and (with no bucket overflowing) a segmented
@@ -67,6 +79,8 @@ from ..core import distributed
 from ..core import index as lidx
 from ..core.index import IndexConfig, LSHIndexState
 from ..kernels import dispatch, ops, quantize
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..sharding.placement import SegmentStack
 from . import faults, wal as walmod
 
@@ -113,16 +127,21 @@ class SegmentedIndex:
     ``torch.Generator().manual_seed(seed)``.  ``precision`` is the sealed
     segments' storage tier (``dispatch.STORE_DTYPES``); ``survivor_k`` the
     quantized query's survivor-pool width (0: the default 4k,
-    ``quantize.survivor_width``).
+    ``quantize.survivor_width``).  ``tenant`` labels spans and metrics;
+    ``on_fanout(seg_wins)`` is the hook :meth:`fanout_telemetry` feeds
+    (``ServingStats.record_fanout``).
     """
 
     def __init__(self, cfg: IndexConfig, *, segment_capacity: int = 1024,
                  insert_chunk: int = 256, seed: int = 0, family=None,
-                 precision: str = "fp32", survivor_k: int = 0, device=None):
+                 precision: str = "fp32", survivor_k: int = 0, device=None,
+                 tenant: str = "default", on_fanout=None):
         if precision not in dispatch.STORE_DTYPES:
             raise ValueError(f"unknown precision {precision!r}; want one "
                              f"of {dispatch.STORE_DTYPES}")
         self.cfg = cfg
+        self.tenant = tenant
+        self._on_fanout = on_fanout
         self.precision = precision
         self.survivor_k = int(survivor_k)
         # share of survivor slots holding a gid in the last quantized query
@@ -141,6 +160,10 @@ class SegmentedIndex:
                                    quantize.storage_dtype(precision),
                                    precision != "fp32", self.device)
         self._locator: dict = {}          # gid -> (segment index, slot)
+        # gid -> segment index (-1: not held), the locator's first column
+        # as an array, for the vectorised win attribution; None once the
+        # gids are too sparse for an array (the locator answers then)
+        self._gid_seg: Optional[np.ndarray] = np.full((0,), -1, np.int32)
         self._next_gid = 0
         self._lock = threading.RLock()
         self.n_rejected = 0
@@ -211,10 +234,13 @@ class SegmentedIndex:
         with self._lock:
             if self.delta.n_items == 0:
                 return
-            self._log(walmod.encode_seal())
-            # crash point: the SEAL record is framed, nothing applied yet
-            faults.fire("seal")
-            self._seal()
+            with obs_trace.tracer().span("seal", tenant=self.tenant,
+                                         rows=self.delta.n_items):
+                self._log(walmod.encode_seal())
+                # crash point: the SEAL record is framed, nothing applied
+                # yet
+                faults.fire("seal")
+                self._seal()
 
     def _seal(self) -> None:
         """Apply a seal (callers hold the lock): stack the delta and open a
@@ -233,6 +259,32 @@ class SegmentedIndex:
             self._stack.seal(seg, *self._encode(seg))
         seg.sealed = True
         self._open_segment()
+        self._publish_store_metrics()
+
+    def _publish_store_metrics(self) -> None:
+        """The ``store_bytes_per_item`` gauge, from host counters."""
+        per_item = self.store_bytes_per_item()
+        if per_item is not None:
+            obs_metrics.registry().set("store_bytes_per_item", per_item,
+                                       tenant=self.tenant)
+
+    def _place(self, gids: np.ndarray, si: int) -> None:
+        """Record segment ``si`` as the holder of ``gids`` in the gid ->
+        segment array (callers hold the lock and update the locator).  Gids
+        far above the item count (a caller's own, sparse) drop the array:
+        it would take their range in memory."""
+        if not gids.size or self._gid_seg is None:
+            return
+        top = int(gids.max()) + 1
+        if top > self._gid_seg.size:
+            if top > max(1 << 20, 8 * len(self._locator)):
+                self._gid_seg = None
+                return
+            grown = np.full((max(top, 2 * self._gid_seg.size),), -1,
+                            np.int32)
+            grown[:self._gid_seg.size] = self._gid_seg
+            self._gid_seg = grown
+        self._gid_seg[gids] = si
 
     def _encode(self, seg: Segment):
         """One about-to-seal segment in the storage tier: (codes, scale,
@@ -345,13 +397,16 @@ class SegmentedIndex:
                 self.precision != "fp32", self.device)
             self.segments = []
             self._locator = {}
+            self._gid_seg = np.full((0,), -1, np.int32)
             for seg in segments:
                 if seg.sealed:
                     self._stack.seal(seg, seg.state.db, seg.scale, seg.pool)
                 si = len(self.segments)
                 self.segments.append(seg)
-                for slot, g in enumerate(seg.gids[:seg.n_items].tolist()):
+                held = seg.gids[:seg.n_items].cpu().numpy()
+                for slot, g in enumerate(held.tolist()):
                     self._locator[g] = (si, slot)
+                self._place(held, si)
             if not self.segments or self.delta.sealed:
                 self._open_segment()
             self._next_gid = int(next_gid)
@@ -439,6 +494,7 @@ class SegmentedIndex:
                 si = len(self.segments) - 1
                 for j, g in enumerate(out_gids[pos:pos + take].tolist()):
                     self._locator[g] = (si, seg.n_items + j)
+                self._place(out_gids[pos:pos + take], si)
                 seg.n_items += take
                 seg.n_live += take
                 pos += take
@@ -595,10 +651,13 @@ class SegmentedIndex:
         shadow's stack is rebuilt over the new sealed set
         (``SegmentStack.rebuild``: slot i = sealed segment i, views
         rebound)."""
-        with self._lock:
+        with self._lock, obs_trace.tracer().span(
+                "compact", tenant=self.tenant, n_live=self.n_live,
+                segments_before=len(self.segments)):
             # crash point: the shadow is built, the swap not yet applied
             faults.fire("compact.swap")
             after = self.segments[frozen_n:]
+            self._gid_seg = shadow._gid_seg
             if len(after) == 1 and after[0].n_items == 0:
                 self.segments = shadow.segments
                 self._locator = shadow._locator
@@ -612,13 +671,15 @@ class SegmentedIndex:
                 locator = shadow._locator
                 base = len(shadow.segments) - 1
                 for j, seg in enumerate(after):
-                    for slot, g in enumerate(
-                            seg.gids[:seg.n_items].tolist()):
+                    held = seg.gids[:seg.n_items].cpu().numpy()
+                    for slot, g in enumerate(held.tolist()):
                         locator[g] = (base + j, slot)
+                    self._place(held, base + j)
                 self._locator = locator
             pending, self._compact_deletes = self._compact_deletes, None
             if pending:
                 self._tombstone(sorted(pending))
+            self._publish_store_metrics()
             return len(self.segments)
 
     # -- query --------------------------------------------------------------
@@ -630,33 +691,51 @@ class SegmentedIndex:
         One stacked query over every segment
         (``core.distributed.query_segments_stacked``); on a quantized tier
         its stage 1 (see :meth:`_query_quantized`).  A row holding a NaN
-        or an infinity answers (-1, +inf) in every slot."""
+        or an infinity answers (-1, +inf) in every slot.
+
+        Inside a sampled trace with deep tracing on, an fp32 query runs
+        the staged form (:class:`_StageSpans`); the int8 and bf16 tiers
+        never do, as in the JAX package."""
         q, finite = self._queries(queries)
-        if self.n_live == 0:
+        if not any(s.n_live for s in self.segments):
             return self._no_results(q.shape[0], k)
         if self.precision != "fp32":
             return _blank_rows(*self._query_quantized(q, k, n_probes),
                                finite)
+        tr = obs_trace.tracer()
+        stage = (_StageSpans(tr, self.tenant, self.device)
+                 if tr.deep and tr.sampled() else None)
         with self._lock:
-            return _blank_rows(*self._query_stacked(q, k, n_probes), finite)
+            return _blank_rows(*self._query_stacked(q, k, n_probes, stage),
+                               finite)
 
-    def _queries(self, queries) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _queries(self, queries
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The batch as contiguous f32 on the device with its NaN and
-        +-inf entries zeroed, and the mask of its all-finite rows: no kernel
-        sees a NaN (K3's select route orders none), and :func:`_blank_rows`
-        answers every other row (-1, +inf) afterwards.  Three elementwise
-        ops and two selects a batch, all-finite or not."""
+        +-inf entries zeroed, and the mask of its all-finite rows (None when
+        every row is): no kernel sees a NaN (K3's select route orders
+        none), and :func:`_blank_rows` answers every other row (-1, +inf)
+        afterwards.  A batch on the host (numpy, as the batcher sends) is
+        checked there, and an all-finite one goes to the device as it is:
+        no kernel.  Otherwise four kernels: ``q - q == 0`` holds exactly at
+        the finite entries (inf - inf and NaN - NaN are NaN), one select
+        zeroes the rest, one reduction gives the rows."""
+        if isinstance(queries, np.ndarray):
+            host = np.asarray(queries, np.float32)
+            if np.isfinite(host).all():
+                return torch.as_tensor(host, device=self.device
+                                       ).contiguous(), None
+            queries = host
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        finite = torch.isfinite(q).all(dim=1)
-        return (torch.nan_to_num(q, nan=0.0, posinf=0.0, neginf=0.0)
-                .contiguous(), finite)
+        ok = (q - q) == 0
+        return torch.where(ok, q, 0.0), ok.all(dim=1)
 
-    def _query_stacked(self, q: torch.Tensor, k: int, n_probes: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _query_stacked(self, q: torch.Tensor, k: int, n_probes: int,
+                       stage=None) -> Tuple[torch.Tensor, torch.Tensor]:
         st = self.delta.state
         return distributed.query_segments_stacked(
             self._stack, self.delta, (st.alpha, st.b, st.mix), self.cfg, q,
-            k, n_probes=n_probes)
+            k, n_probes=n_probes, stage=stage)
 
     def _query_fanout(self, queries, k: int, n_probes: int = 1
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -734,6 +813,9 @@ class SegmentedIndex:
             torch.as_tensor(g_np, device=self.device), k, p=self.cfg.p)
         if g_np.size:
             self.rerank_survivor_frac = float((g_np >= 0).mean())
+            obs_metrics.registry().set("rerank_survivor_frac",
+                                       self.rerank_survivor_frac,
+                                       tenant=self.tenant)
         return g, d
 
     def _survivor_rows(self, g_np: np.ndarray) -> np.ndarray:
@@ -768,14 +850,68 @@ class SegmentedIndex:
         g_np[...] = flat.reshape(nq, m)
         return rows.reshape(nq, m, self.cfg.n_dims)
 
+    def segment_wins(self, g_np: np.ndarray) -> np.ndarray:
+        """Top-k slots of a merged answer (host gids, -1 for an empty
+        slot) won per segment, by position in :attr:`segments`."""
+        flat = np.asarray(g_np).ravel()
+        flat = flat[flat >= 0]
+        with self._lock:
+            if self._gid_seg is None:
+                seg = np.fromiter((self._locator.get(g, (-1,))[0]
+                                   for g in flat.tolist()), np.int64,
+                                  flat.size)
+            else:
+                seg = self._gid_seg[flat[flat < self._gid_seg.size]]
+            return np.bincount(seg[seg >= 0],
+                               minlength=len(self.segments))
+
+    def fanout_telemetry(self, g_np: np.ndarray) -> None:
+        """Feed the ``on_fanout`` hook one merged answer's wins per segment
+        (the servable's batcher calls it with each chunk's host ids, which
+        it copies anyway; None hook: nothing)."""
+        if self._on_fanout is not None:
+            self._on_fanout(self.segment_wins(g_np))
+
     def occupancy(self) -> List[dict]:
         return [s.occupancy() for s in self.segments]
 
 
-def _blank_rows(g: torch.Tensor, d: torch.Tensor, finite: torch.Tensor
+class _StageSpans:
+    """The staged engine's ``stage``: ``stage(name)`` is a span of the
+    tracer around one stage of the stacked query that, on the card, ends
+    with a device sync inside it, so the span holds the stage's device time
+    and not only its dispatch.  The stages run one after another, never
+    nested, so one object serves them all."""
+
+    __slots__ = ("tracer", "tenant", "sync", "span")
+
+    def __init__(self, tracer, tenant: str, device: torch.device):
+        self.tracer = tracer
+        self.tenant = tenant
+        self.sync = device if device.type == "cuda" else None
+        self.span = None
+
+    def __call__(self, name: str) -> "_StageSpans":
+        self.span = self.tracer.span(name, tenant=self.tenant)
+        return self
+
+    def __enter__(self) -> "_StageSpans":
+        self.span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None and self.sync is not None:
+            torch.cuda.synchronize(self.sync)
+        return self.span.__exit__(*exc)
+
+
+def _blank_rows(g: torch.Tensor, d: torch.Tensor,
+                finite: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gids, dists) with every row that ``finite`` does not mark set to
-    (-1, +inf)."""
+    (-1, +inf) (None: every row is finite)."""
+    if finite is None:
+        return g, d
     rows = finite[:, None]
     return torch.where(rows, g, -1), torch.where(rows, d, torch.inf)
 

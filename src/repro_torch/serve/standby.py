@@ -20,6 +20,11 @@ answers as the uninterrupted primary would.
   is skipped, as recovery skips it.
 * The tailer thread waits on an event between polls, so :meth:`stop`
   returns at once.  Promotion is idempotent and final.
+
+Telemetry, as the JAX standby's: each poll counts the records it applied
+in ``standby_replayed_records_total`` and sets ``standby_lag_bytes``; a
+promotion counts ``standby_promotions_total`` and sets the lag to 0, per
+tenant.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import os
 import threading
 from typing import Dict, Optional
 
+from ..obs import metrics as obs_metrics
 from . import wal as walmod
 from .registry import ServableRegistry, _spec_from_manifest
 
@@ -93,13 +99,18 @@ class WalStandby:
                 return {}
             self._adopt_new()
             out: Dict[str, dict] = {}
+            reg = obs_metrics.registry()
             for name, fol in self._followers.items():
                 records, _ = fol.poll()
                 counts = {"applied": 0, "dropped_duplicates": 0}
                 if records:
                     counts = self.registry.get(name).index.apply_records(
                         records)
-                out[name] = dict(counts, lag_bytes=fol.lag_bytes())
+                    reg.inc("standby_replayed_records_total",
+                            counts["applied"], tenant=name)
+                lag = fol.lag_bytes()
+                reg.set("standby_lag_bytes", lag, tenant=name)
+                out[name] = dict(counts, lag_bytes=lag)
             return out
 
     def lag(self) -> Dict[str, int]:
@@ -184,5 +195,8 @@ class WalStandby:
             self.registry.get(name).index.attach_wal(
                 walmod.WriteAheadLog(fol.path,
                                      fsync_every=self._fsync_every))
+            reg = obs_metrics.registry()
+            reg.inc("standby_promotions_total", tenant=name)
+            reg.set("standby_lag_bytes", 0, tenant=name)
             reports[name] = rep
         return reports

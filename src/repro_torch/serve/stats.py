@@ -1,10 +1,15 @@
 """Serving statistics: QPS, latency percentiles, recall proxy, occupancy.
 
-The port's own copy of the parts of ``repro/serve/stats.py`` the slice
-uses (metrics-registry publishing and fan-out telemetry left out; the
-storage tier's gauges become :func:`store_report`).
+The port's own copy of the parts of ``repro/serve/stats.py`` one device
+uses (device wins and loads are multi-device telemetry, not ported yet).
 Host-side and lock-guarded: a bounded deque of (t, n) events per rate
-window and a bounded latency reservoir for percentiles.  The recall proxy
+window and a bounded latency reservoir for percentiles.  Every record_*
+call also publishes into the ``obs.metrics`` registry under the
+servable's ``tenant`` label (``serve_queries_total`` and the rest);
+:meth:`ServingStats.snapshot` stays the in-process view.
+:meth:`ServingStats.record_fanout` takes the merged answer's wins per
+segment (``SegmentedIndex.segment_wins``) into
+``serve_segment_wins_total``.  The recall proxy
 replays a probe set through the segmented index and an exact brute-force
 scan over its live items.
 """
@@ -20,15 +25,20 @@ import numpy as np
 import torch
 
 from ..core import index as lidx
+from ..obs import metrics as obs_metrics
 
 
 class ServingStats:
     """Sliding-window rates + latency reservoir for one servable."""
 
     def __init__(self, *, window_s: float = 10.0, reservoir: int = 4096,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 tenant: str = "default",
+                 metrics: Optional[obs_metrics.MetricsRegistry] = None):
         self.window = window_s
         self.clock = clock
+        self.tenant = tenant
+        self.metrics = obs_metrics.registry() if metrics is None else metrics
         self._lock = threading.Lock()
         self._queries: deque = deque()       # (t, n_queries)
         self._inserts: deque = deque()
@@ -53,16 +63,26 @@ class ServingStats:
             if latency_s is not None:
                 self._lat[self._lat_n % self._lat.shape[0]] = latency_s
                 self._lat_n += 1
+        self.metrics.inc("serve_queries_total", n, tenant=self.tenant)
+        if latency_s is not None:
+            self.metrics.observe("serve_query_latency_s", latency_s,
+                                 tenant=self.tenant)
 
     def record_batch(self, rows_real: int, rows_padded: int,
                      latency_s: float) -> None:
         """One micro-batch: ``rows_real`` request rows in a
         ``rows_padded``-row palette chunk."""
         self.record_query(rows_real, latency_s)
+        pad = max(int(rows_padded) - int(rows_real), 0)
         with self._lock:
             self.totals["batches"] += 1
             self._rows_real += rows_real
-            self._rows_pad += max(int(rows_padded) - int(rows_real), 0)
+            self._rows_pad += pad
+        self.metrics.inc("serve_batches_total", tenant=self.tenant)
+        self.metrics.inc("serve_batch_rows_real_total", rows_real,
+                         tenant=self.tenant)
+        self.metrics.inc("serve_batch_rows_padded_total", pad,
+                         tenant=self.tenant)
 
     def record_insert(self, n: int) -> None:
         now = self.clock()
@@ -70,18 +90,32 @@ class ServingStats:
             self._inserts.append((now, n))
             self._trim(self._inserts, now)
             self.totals["inserts"] += n
+        self.metrics.inc("serve_inserts_total", n, tenant=self.tenant)
 
     def record_rejected(self, n: int) -> None:
         with self._lock:
             self.totals["rejected_inserts"] += n
+        self.metrics.inc("serve_rejected_inserts_total", n,
+                         tenant=self.tenant)
 
     def record_delete(self, n: int) -> None:
         with self._lock:
             self.totals["deletes"] += n
+        self.metrics.inc("serve_deletes_total", n, tenant=self.tenant)
 
     def record_recall(self, recall: float) -> None:
         with self._lock:
             self._recall = float(recall)
+        self.metrics.set("serve_recall_proxy", recall, tenant=self.tenant)
+
+    def record_fanout(self, seg_wins) -> None:
+        """One merged answer's top-k slots won per segment (``seg_wins[i]``
+        for segment i, positional) into ``serve_segment_wins_total``."""
+        wins = np.asarray(seg_wins)
+        at = np.flatnonzero(wins)
+        self.metrics.inc_each("serve_segment_wins_total", "segment",
+                              zip(at.tolist(), wins[at].tolist()),
+                              tenant=self.tenant)
 
     def _rate(self, dq: deque) -> float:
         now = self.clock()

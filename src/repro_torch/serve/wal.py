@@ -34,8 +34,13 @@ The default comes from ``$REPRO_WAL_FSYNC_EVERY`` (8).
 
 Fault sites (``serve/faults.py``): ``wal.append`` between the header and
 payload writes (a ``kill`` there leaves a torn frame), ``wal.appended``
-after the flush, ``wal.fsync`` / ``wal.fsynced`` around the fsync.  The
-JAX package's WAL metrics and spans wait for the port's telemetry.
+after the flush, ``wal.fsync`` / ``wal.fsynced`` around the fsync.
+
+Telemetry, as the JAX package's: each append runs under a ``wal.append``
+span and each fsync under ``wal.fsync``, and they count
+``wal_appends_total``, ``wal_bytes_total`` (frame headers included: the
+file's bytes), ``wal_fsyncs_total``, ``wal_append_latency_s`` and
+``wal_fsync_latency_s``, labelled by the log's tenant (its basename).
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import faults
 
 _ENV_FSYNC_EVERY = "REPRO_WAL_FSYNC_EVERY"
@@ -190,6 +197,9 @@ class WriteAheadLog:
         self.path = path
         self.fsync_every = (default_fsync_every() if fsync_every is None
                             else max(0, int(fsync_every)))
+        # the metric and span label: the registry names a tenant's log
+        # <name>.wal
+        self.tenant = os.path.splitext(os.path.basename(path))[0]
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
@@ -205,27 +215,44 @@ class WriteAheadLog:
         The header is flushed before the payload is written, so a ``kill``
         at ``wal.append`` leaves a header whose payload never arrived:
         the torn frame replay must survive."""
-        self._f.write(_HEADER.pack(len(payload), zlib.crc32(payload)))
-        self._f.flush()
-        faults.fire("wal.append")
-        self._f.write(payload)
-        self._f.flush()
-        faults.fire("wal.appended")
-        self.offset += _HEADER.size + len(payload)
+        tr = obs_trace.tracer()
+        t0 = tr.clock()
+        size = _HEADER.size + len(payload)
+        with tr.span("wal.append", tenant=self.tenant, bytes=size):
+            self._f.write(_HEADER.pack(len(payload), zlib.crc32(payload)))
+            self._f.flush()
+            faults.fire("wal.append")
+            self._f.write(payload)
+            self._f.flush()
+            faults.fire("wal.appended")
+        self.offset += size
         self.appends += 1
         self._pending += 1
+        reg = obs_metrics.registry()
+        reg.inc("wal_appends_total", tenant=self.tenant)
+        reg.inc("wal_bytes_total", size, tenant=self.tenant)
+        reg.observe("wal_append_latency_s", tr.clock() - t0,
+                    tenant=self.tenant)
         if self.fsync_every and self._pending >= self.fsync_every:
             self.sync()
         return self.offset
 
     def sync(self) -> None:
         """Group-commit point: everything appended so far becomes durable."""
-        self._f.flush()
-        faults.fire("wal.fsync")
-        os.fsync(self._f.fileno())
-        faults.fire("wal.fsynced")
+        tr = obs_trace.tracer()
+        t0 = tr.clock()
+        with tr.span("wal.fsync", tenant=self.tenant,
+                     pending=self._pending):
+            self._f.flush()
+            faults.fire("wal.fsync")
+            os.fsync(self._f.fileno())
+            faults.fire("wal.fsynced")
         self._pending = 0
         self.syncs += 1
+        reg = obs_metrics.registry()
+        reg.inc("wal_fsyncs_total", tenant=self.tenant)
+        reg.observe("wal_fsync_latency_s", tr.clock() - t0,
+                    tenant=self.tenant)
 
     def close(self) -> None:
         if not self._f.closed:

@@ -746,3 +746,84 @@ def test_stacked_query_bit_equal_to_fanout_on_the_card(gen, precision):
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
     assert counts["hash_mm"] == 1
     assert counts["fused_query"] + counts["quantized_query"] == 2
+
+
+@pytest.mark.parametrize("rows", [32, 128])
+def test_staged_query_bit_equal_on_the_card(gen, rows):
+    """The deep-traced staged query (a span and a device sync per stage)
+    against the untraced query on the card, bit for bit, with the same
+    launches: K1 once, K2 twice, K3 once; its five stage spans nest in
+    the request (no duration asserted here)."""
+    import numpy as np
+    from repro_torch.core import index as lidx
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve import SegmentedIndex
+    cfg = lidx.IndexConfig(n_dims=64, n_tables=8, n_hashes=4,
+                           log2_buckets=10, bucket_capacity=32, r=4.0)
+    si = SegmentedIndex(cfg, segment_capacity=1024, device="cuda",
+                        tenant="cuda-staged")
+    rng = np.random.default_rng(4)
+    emb = (rng.normal(size=(6 * 1024 + 300, 64)) * 0.3).astype(np.float32)
+    si.insert(emb)
+    si.delete(np.arange(0, len(emb), 5))
+    q = emb[rng.integers(0, len(emb), rows)] + 0.01
+    want = si.query(q, 10, n_probes=4)
+    tr = obs_trace.tracer()
+    tr.drain()
+    try:
+        obs_trace.configure(sample_rate=1.0, deep=True)
+        dispatch.reset_launches()
+        with tr.span("request", tenant="cuda-staged"):
+            got = si.query(q, 10, n_probes=4)
+        counts = dict(dispatch.launches)
+    finally:
+        obs_trace.configure(sample_rate=0.0, deep=False)
+        spans = tr.drain()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert (counts["hash_mm"], counts["fused_query"], counts["merge"]) == (
+        1, 2, 1)
+    names = [s["name"] for s in spans]
+    assert names == ["hash", "probe", "gather", "rerank", "merge", "request"]
+    root = spans[-1]["span_id"]
+    assert all(s["parent_id"] == root for s in spans[:-1])
+
+
+def test_query_index_batched_on_the_card(gen):
+    """5,000 rows in 1,024-row chunks on one 1,024-item segment: bit-equal
+    to one query_index call, and to the plain path on the CPU in every row
+    no bucket boundary explains (|proj - round(proj)| <= 1e-4 for the row
+    or for an id that differs): ids equal where distances are distinct,
+    distances rtol 1e-5 atol 1e-6."""
+    from repro_torch.core import index as lidx
+    cfg = lidx.IndexConfig(n_dims=64, n_tables=8, n_hashes=4,
+                           log2_buckets=10, bucket_capacity=32, r=4.0)
+    x = torch.randn((1024, 64), generator=gen) * 0.3
+    q = x[torch.randint(0, 1024, (5000,), generator=gen)] + 0.01 * \
+        torch.randn((5000, 64), generator=gen)
+    fam = lidx.make_family(gen, cfg)
+    st = lidx.build_index(lidx.create_index(cfg, 1024, family=fam,
+                                            device="cuda"), cfg, x.cuda())
+    dispatch.reset_launches()
+    bi, bd = lidx.query_index_batched(st, cfg, q, 10, n_probes=4,
+                                      batch_size=1024)
+    assert dispatch.launches["hash_mm"] == 5
+    assert dispatch.launches["fused_query"] == 5
+    oi, od = lidx.query_index(st, cfg, q, 10, n_probes=4)
+    assert torch.equal(bi, oi)
+    assert torch.equal(bd.view(torch.int32), od.view(torch.int32))
+    st_c = lidx.build_index(lidx.create_index(cfg, 1024, family=fam,
+                                              device="cpu"), cfg, x)
+    pi, pd = lidx.query_index(st_c, cfg, q, 10, n_probes=4)
+
+    def near(v):
+        p = ref.hash_mm_proj_ref(v, fam[0], fam[1], cfg.r)[1]
+        return ((p - torch.round(p)).abs() <= 1e-4).any(dim=-1)
+    near_item = near(x)
+    bi, bd = bi.cpu(), bd.cpu()
+    ok = ~near(q)
+    for r in torch.nonzero((bi != pi).any(dim=1)).flatten().tolist():
+        diff = set(bi[r].tolist()) ^ set(pi[r].tolist())
+        if any(i >= 0 and bool(near_item[i]) for i in diff):
+            ok[r] = False
+    _assert_topk_matches(bd[ok], bi[ok], pd[ok], pi[ok], exact=False)

@@ -126,3 +126,24 @@ def test_convert_round_trip_answers_like_jax():
     for leaf in ("table", "counts", "db"):
         np.testing.assert_array_equal(getattr(st2, leaf).numpy(),
                                       np.asarray(getattr(sj2, leaf)))
+
+
+def test_the_obs_package_is_covered_and_stdlib_only():
+    """``repro_torch.obs`` is in the package (so the import checks above
+    cover it), and, like the JAX package's ``obs``, imports nothing but
+    the standard library and itself: any layer may import it."""
+    obs = [m for m in _modules() if m.startswith("repro_torch.obs")]
+    assert obs == ["repro_torch.obs", "repro_torch.obs.export",
+                   "repro_torch.obs.metrics", "repro_torch.obs.trace"]
+    for path in sorted((PKG / "obs").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] in sys.stdlib_module_names | {
+                    "__future__"}, (path.name, n)
