@@ -103,8 +103,37 @@ each of which raises on failure (the script then exits non-zero):
    ``Exporter`` flush whose every line must match the port's ``CATALOG``
    (name, type, label keys), with every required metric present but the
    multi-device ``serve_device_wins_total``.
+12. front end, on phases 6-7's tenants after their compaction (it runs
+   right after phase 8, before phase 9 releases them), fp32 then int8: a
+   ``Frontend`` on an asyncio loop in a thread at 127.0.0.1:0; 16
+   closed-loop ``FrontendClient`` connections of 64 requests of 8 rows (k
+   10, 4 probes), every answer (gids and distance bits through the
+   float64 wire) equal to ``_query_stacked`` on its rows, beside the same
+   streams through ``submit_query`` with no sockets (request rate, rows/s,
+   p50 / p95 / p99 on the client clock, rows per padded batch); NaN and
+   +-inf rows answering (-1, +inf) as the direct call; the ``embed`` verb
+   bit-equal to ``Servable.embed``; kernels per wire batch; a ``load``-ed
+   l1-qmc tenant under another name fed 65,536 rows in 1,024-row frames
+   (wire ingest rows/s), 35% deleted, sealed and compacted by the
+   ``maintenance`` verb under 4 query streams (each answer equal to the one
+   before or after the job), an unknown job id, ``unload`` (drained, then
+   ``unknown_tenant``) and ``torch.cuda.memory_allocated`` back within 5%
+   of its value before the ``load``; ``update`` of the palette and
+   deadline (answers unchanged, the new palette in ``unique_shapes``, a
+   replication update ``bad_request``); ``health`` and ``stats`` (the
+   catalog equal to ``CATALOG``); a second ``Frontend`` with
+   ``max_inflight=2, queue_depth=2`` under 32 connections (nonzero
+   ``overloaded`` / ``queue_full`` rejects, each with ``retry_after_ms``,
+   no dropped connection; the reject share); the export against the
+   catalog with every ``frontend_*`` series the phase exercised.  Then,
+   once, a child ``python -m repro_torch.launch.serve --listen
+   127.0.0.1:0 --tenants l2-basis`` on the card (300 s timeout): 16,384
+   rows inserted over the wire, 8 query streams, SIGTERM mid-traffic; it
+   must exit 0 with ``settled == admitted`` and ``inflight=0``, each
+   stream ending in one ``shutting_down``; the drain wall.  One
+   ``frontend {...}`` line per tier and one for the drain.
 
-Launch counts are read around each of phases 6-11.
+Launch counts are read around each of phases 6-12.
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -116,7 +145,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2 and 6-11 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-12 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -2489,17 +2518,671 @@ def serve_run(tenants, **kw):
     return {"l2-basis": serve.run(**kw)}
 
 
+# -- phase 12: the network front end ----------------------------------------
+
+
+FE_STREAMS, FE_REQUESTS, FE_ROWS = 16, 64, 8   # the demo's request shape
+FE_K, FE_PROBES = 10, 4
+FE_INGEST, FE_FRAME = 65536, 1024             # the wire-loaded tenant
+FE_MAINT_STREAMS = 4
+FE_PALETTE = (8, 16, 64, 128)                 # the update's new palette
+FE_OVERLOAD = (32, 16)                        # connections x requests
+FE_DRAIN_ROWS, FE_DRAIN_STREAMS = 16384, 8
+FE_SERIES = ("frontend_requests_total", "frontend_rejects_total",
+             "frontend_inflight", "frontend_queue_depth",
+             "frontend_request_latency_s", "frontend_connections_total",
+             "tenant_lifecycle_transitions_total")
+
+
+def has_frontend() -> bool:
+    """Does this checkout have the port's network front end?"""
+    return (ROOT / "src" / "repro_torch" / "serve" / "frontend.py").is_file()
+
+
+def on_threads(n, work, timeout_s=600.0):
+    """``work(i)`` for i < n, each on its own thread, all at once: (the
+    results by i, the wall seconds); raises the first failure."""
+    import threading
+    out, errors = [None] * n, []
+
+    def run(i):
+        try:
+            out[i] = work(i)
+        except BaseException as e:     # noqa: BLE001 -- raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"front end: a stream ran past {timeout_s}s")
+    if errors:
+        raise errors[0]
+    return out, wall
+
+
+def latency(secs, wall, rows) -> dict:
+    """Request rate, rows/s and p50 / p95 / p99 of per-request seconds."""
+    cuts = statistics.quantiles(secs, n=100, method="inclusive")
+    return {"requests": len(secs), "wall_s": wall,
+            "requests_per_s": len(secs) / wall,
+            "rows_per_s": len(secs) * rows / wall,
+            "p50_ms": cuts[49] * 1e3, "p95_ms": cuts[94] * 1e3,
+            "p99_ms": cuts[98] * 1e3}
+
+
+def bits_of(g, d):
+    return np.asarray(g), np.asarray(d, np.float32).view(np.int32)
+
+
+def stacked_answer(idx, q):
+    """The direct answer to rows ``q`` (k 10, 4 probes), (gids, distance
+    bits) on the host: ``_query_stacked`` at fp32, as phase 11; on a
+    quantized tier ``query`` itself, whose stage 1 is the stacked query
+    and stage 2 the exact survivor rescore."""
+    import torch
+    if idx.precision != "fp32":
+        g, d = idx.query(q, FE_K, FE_PROBES)
+    else:
+        with idx._lock:
+            g, d = idx._query_stacked(torch.as_tensor(q, device=idx.device),
+                                      FE_K, FE_PROBES)
+    return g.cpu().numpy(), d.cpu().numpy().view(np.int32)
+
+
+def sync_memory(dev):
+    """Collect garbage, sync the card and read its allocated bytes (None
+    on the CPU)."""
+    import gc
+
+    import torch
+    gc.collect()
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def kernels_in(dev, fn):
+    """Kernels on the card during ``fn()`` (torch.profiler's trace, as
+    ``profile_batches``); None on the CPU."""
+    if dev.type != "cuda":
+        fn()
+        return None
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    path = ROOT / "build" / "wire_batch_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    return sum(e.get("cat") == "kernel" for e in events)
+
+
+def wire_streams(host, port, tenant, reqs):
+    """Each stream i sends its requests ``reqs[i]`` in turn on its own
+    connection: (answers, per-request seconds on the client clock, wall)."""
+    from repro_torch.serve import FrontendClient
+
+    def work(i):
+        answers, secs = [], []
+        with FrontendClient(host, port, timeout_s=120.0) as c:
+            for q in reqs[i]:
+                t = time.perf_counter()
+                g, d = c.query_arrays(tenant, q, k=FE_K, n_probes=FE_PROBES)
+                secs.append(time.perf_counter() - t)
+                answers.append(bits_of(g, d))
+        return answers, secs
+    out, wall = on_threads(len(reqs), work)
+    return ([a for a, _ in out], [s for _, ss in out for s in ss], wall)
+
+
+def wire_client(job: dict) -> int:
+    """``chip_smoke.py --wire-client JOB``: the wire streams of
+    ``job["rows"]`` (an .npy of (streams, requests, rows, N)) from a
+    process of their own, answers and client-clock seconds saved to
+    ``job["out"]``."""
+    reqs = np.load(job["rows"])
+    answers, secs, wall = wire_streams(job["host"], job["port"],
+                                       job["tenant"], reqs)
+    np.savez(job["out"], gids=np.array([[a[0] for a in s] for s in answers]),
+             dist_bits=np.array([[a[1] for a in s] for s in answers]),
+             secs=np.array(secs), wall=np.array(wall))
+    return 0
+
+
+def client_process_streams(srv, tenant, reqs):
+    """:func:`wire_streams` run by a child process (``--wire-client``), so
+    the clients' Python time shares no interpreter lock with the server's
+    loop and pump threads: (answers, seconds, wall)."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="wire-client-",
+                                     dir=ROOT / "build") as tmp:
+        job = {"host": srv.host, "port": srv.port, "tenant": tenant,
+               "rows": f"{tmp}/rows.npy", "out": f"{tmp}/out.npz"}
+        np.save(job["rows"], reqs)
+        p = run_child(job, "--wire-client")
+        if p.returncode != 0:
+            raise AssertionError(f"front end: the client process exited "
+                                 f"{p.returncode}: {p.stderr[-2000:]}")
+        z = np.load(job["out"])
+        answers = [[(z["gids"][i, j], z["dist_bits"][i, j])
+                    for j in range(reqs.shape[1])]
+                   for i in range(reqs.shape[0])]
+        return answers, z["secs"].tolist(), float(z["wall"])
+
+
+def codec_us(q, g, d, reps=200) -> dict:
+    """Host µs per request of the wire's JSON work for one request of rows
+    ``q`` answered (g, d): the client's encode, the server's decode (with
+    its float32 array), the server's encode of the answer, the client's
+    decode of it; medians of ``reps`` calls."""
+    from repro_torch.serve import protocol
+
+    def med(fn):
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+        return statistics.median(ts) * 1e6
+    req = protocol.encode({"id": 1, "op": "query", "tenant": "l2-basis",
+                           "queries": np.asarray(q, np.float32).tolist(),
+                           "k": FE_K, "n_probes": FE_PROBES})
+    ans = protocol.encode(protocol.ok(1, gids=g.tolist(), dists=np.asarray(
+        d, np.float64).tolist()))
+    return {
+        "request_bytes": len(req), "answer_bytes": len(ans),
+        "client_encode": med(lambda: protocol.encode({
+            "id": 1, "op": "query", "tenant": "l2-basis",
+            "queries": np.asarray(q, np.float32).tolist(), "k": FE_K,
+            "n_probes": FE_PROBES})),
+        "server_decode": med(lambda: np.asarray(
+            protocol.decode_line(req)["queries"], np.float32)),
+        "server_encode": med(lambda: protocol.encode(protocol.ok(
+            1, gids=g.tolist(), dists=np.asarray(d, np.float64).tolist()))),
+        "client_decode": med(lambda: [np.asarray(v, t) for v, t in zip(
+            (lambda m: (m["gids"], m["dists"]))(protocol.decode_line(ans)),
+            (np.int32, np.float32))])}
+
+
+def local_streams(sv, reqs):
+    """The same streams through ``submit_query``, no sockets."""
+    def work(i):
+        answers, secs = [], []
+        for q in reqs[i]:
+            t = time.perf_counter()
+            g, d = sv.submit_query(q, FE_K, FE_PROBES).result()
+            secs.append(time.perf_counter() - t)
+            answers.append(bits_of(g, d))
+        return answers, secs
+    out, wall = on_threads(len(reqs), work)
+    return ([a for a, _ in out], [s for _, ss in out for s in ss], wall)
+
+
+def wire_tenant_leg(srv, reg, tier, rng):
+    """The wire-loaded tenant: ``load`` the l1-qmc spec under another name,
+    ingest FE_INGEST rows in FE_FRAME-row frames, delete 35%, seal, then
+    compact under FE_MAINT_STREAMS query streams (each answer equal to the
+    one before or after the job), an unknown job id, ``unload``, and the
+    card's memory back within 5% of its value before the ``load``."""
+    import dataclasses
+    import threading
+    name = f"wire-l1-qmc-{tier}"
+    dev = reg.device
+    mem0 = sync_memory(dev)
+    res = {"tenant": name}
+    with srv.client() as c:
+        r = c.load(dataclasses.asdict(dataclasses.replace(
+            tenant_spec("l1-qmc", tier), name=name)))
+        if r["state"] != "ready":
+            raise AssertionError(f"front end ({tier}): load answered {r}")
+        wsv = reg.get(name)
+        emb = wsv.embed(probe_inputs(wsv, rng, FE_INGEST)).cpu().numpy()
+        del wsv
+        t0 = time.perf_counter()
+        for s in range(0, FE_INGEST, FE_FRAME):
+            gids = c.insert(name, emb[s:s + FE_FRAME])
+            if gids[0] != s or gids.size != FE_FRAME:
+                raise AssertionError(f"front end ({tier}): insert at {s} "
+                                     f"answered gids from {gids[0]}")
+        if dev.type == "cuda":
+            import torch
+            torch.cuda.synchronize(dev)
+        res["ingest_rows_per_s"] = FE_INGEST / (time.perf_counter() - t0)
+        mem_loaded = sync_memory(dev)
+        victims = np.sort(rng.choice(FE_INGEST, size=int(
+            COMPACT_DELETE_FRAC * FE_INGEST), replace=False))
+        res["deleted"] = c.delete(name, victims)
+        if res["deleted"] != victims.size:
+            raise AssertionError(f"front end ({tier}): deleted "
+                                 f"{res['deleted']} of {victims.size}")
+        st = c.wait_job(c.maintenance(name, "seal"), timeout_s=300.0)
+        res["segments_before"] = st["result"]["n_segments"]
+        qs = [emb[rng.integers(0, FE_INGEST, size=FE_ROWS)] + rng.normal(
+            scale=0.05, size=(FE_ROWS, emb.shape[1])).astype(np.float32)
+            for _ in range(FE_MAINT_STREAMS)]
+        pre = [bits_of(*c.query_arrays(name, q, k=FE_K, n_probes=FE_PROBES))
+               for q in qs]
+        stop = threading.Event()
+
+        def stream(i):
+            out = []
+            with srv.client() as sc:
+                while not stop.is_set() or not out:
+                    out.append(bits_of(*sc.query_arrays(
+                        name, qs[i], k=FE_K, n_probes=FE_PROBES)))
+            return out
+        box = {}
+        runner = threading.Thread(target=lambda: box.update(
+            out=on_threads(FE_MAINT_STREAMS, stream)))
+        runner.start()
+        try:
+            t0 = time.perf_counter()
+            job = c.maintenance(name, "compact")
+            st = c.wait_job(job, timeout_s=300.0)
+            res["compact_job_s"] = time.perf_counter() - t0
+        finally:
+            stop.set()
+            runner.join(600.0)
+        if "out" not in box:
+            raise AssertionError(f"front end ({tier}): a query stream "
+                                 "failed during the compaction")
+        during = box["out"][0]
+        post = [bits_of(*c.query_arrays(name, q, k=FE_K, n_probes=FE_PROBES))
+                for q in qs]
+        idx = reg.get(name).index
+        for q, p in zip(qs, post):
+            if not same(p, stacked_answer(idx, q)):
+                raise AssertionError(f"front end ({tier}): a compacted "
+                                     "answer differs from _query_stacked")
+        del idx
+        torn = sum(1 for i, outs in enumerate(during) for a in outs
+                   if not (same(a, pre[i]) or same(a, post[i])))
+        n_during = sum(len(o) for o in during)
+        if torn:
+            raise AssertionError(f"front end ({tier}): {torn} of {n_during} "
+                                 "answers during the compaction equal "
+                                 "neither the one before nor after")
+        want_live = FE_INGEST - victims.size
+        if st["status"] != "done" or st["result"]["n_live"] != want_live:
+            raise AssertionError(f"front end ({tier}): compaction job {st}")
+        res.update(segments_after=st["result"]["n_segments"],
+                   answers_during_job=n_during, torn=torn,
+                   pre_equals_post=all(same(a, b) for a, b in
+                                       zip(pre, post)))
+        r = c.request("job_status", job_id="mj-0")
+        if r.get("code") != "unknown_job":
+            raise AssertionError(f"front end ({tier}): unknown job id "
+                                 f"answered {r}")
+        r = c.unload(name)
+        if r["state"] != "unloaded" or r["drained"] is not True:
+            raise AssertionError(f"front end ({tier}): unload answered {r}")
+        r = c.query(name, qs[0], k=FE_K)
+        if r.get("code") != "unknown_tenant":
+            raise AssertionError(f"front end ({tier}): an unloaded tenant "
+                                 f"answered {r}")
+    mem1 = sync_memory(dev)
+    res.update(memory_before_load=mem0, memory_loaded=mem_loaded,
+               memory_after_unload=mem1)
+    if mem0 is not None:
+        res["freed_share_of_load"] = ((mem_loaded - mem1)
+                                      / max(mem_loaded - mem0, 1))
+        if abs(mem1 - mem0) > 0.05 * mem0:
+            raise AssertionError(f"front end ({tier}): {mem1} bytes "
+                                 f"allocated after the unload, {mem0} "
+                                 "before the load (> 5% apart)")
+    return res
+
+
+def frontend_phase(reg, tier, card, smi):
+    """Phase 12 on one tier's l2-basis tenant (after its compaction): see
+    the module docstring.  Returns the numbers."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.obs import CATALOG, Exporter
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve import BackgroundServer
+    sv = reg.get("l2-basis")
+    idx, dev = sv.index, reg.device
+    rng = np.random.default_rng(1200 + (tier == "int8"))
+    n_req = FE_STREAMS * FE_REQUESTS
+    rows = sv.embed(probe_inputs(sv, rng, n_req * FE_ROWS)).cpu().numpy()
+    rows += rng.normal(scale=0.05, size=rows.shape).astype(np.float32)
+    reqs = rows.reshape(FE_STREAMS, FE_REQUESTS, FE_ROWS, -1)
+    res = {"tier": tier, "card": smi, "items": idx.n_live,
+           "segments": len(idx.segments)}
+    srv = BackgroundServer(reg)
+    try:
+        with srv.client() as c:                  # warm the connection path
+            c.query_arrays("l2-basis", reqs[0, 0], k=FE_K,
+                           n_probes=FE_PROBES)
+        n0 = (sv.batcher.n_requests, sv.batcher.n_batches)
+        wire, wire_s, wall = wire_streams(srv.host, srv.port, "l2-basis",
+                                          reqs)
+        n1 = (sv.batcher.n_requests, sv.batcher.n_batches)
+        local, local_s, lwall = local_streams(sv, reqs)
+        n2 = (sv.batcher.n_requests, sv.batcher.n_batches)
+        ext, ext_s, ewall = client_process_streams(srv, "l2-basis", reqs)
+        n3 = (sv.batcher.n_requests, sv.batcher.n_batches)
+        want = [[stacked_answer(idx, q) for q in s] for s in reqs]
+        bad = [(i, j) for i in range(FE_STREAMS) for j in range(FE_REQUESTS)
+               if not (same(wire[i][j], want[i][j])
+                       and same(local[i][j], want[i][j])
+                       and same(ext[i][j], want[i][j]))]
+        if bad:
+            raise AssertionError(f"front end ({tier}): {len(bad)} of {n_req} "
+                                 "answers differ from _query_stacked "
+                                 f"(first {bad[0]})")
+        res["wire"] = {**latency(wire_s, wall, FE_ROWS),
+                       "n_requests": n1[0] - n0[0],
+                       "n_batches": n1[1] - n0[1],
+                       "rows_per_batch": FE_ROWS * (n1[0] - n0[0])
+                       / max(n1[1] - n0[1], 1)}
+        res["in_process"] = {**latency(local_s, lwall, FE_ROWS),
+                             "n_requests": n2[0] - n1[0],
+                             "n_batches": n2[1] - n1[1],
+                             "rows_per_batch": FE_ROWS * (n2[0] - n1[0])
+                             / max(n2[1] - n1[1], 1)}
+        g0, d0 = want[0][0]
+        res["wire_codec_us"] = codec_us(reqs[0, 0], g0, d0.view(np.float32))
+        res["wire_client_process"] = {
+            **latency(ext_s, ewall, FE_ROWS), "n_requests": n3[0] - n2[0],
+            "n_batches": n3[1] - n2[1],
+            "rows_per_batch": FE_ROWS * (n3[0] - n2[0])
+            / max(n3[1] - n2[1], 1)}
+
+        with srv.client() as c:
+            # NaN and +-inf query rows: (-1, +inf), as the direct call
+            for j, spots in enumerate(((1, 2, np.nan), (4, 0, np.inf),
+                                       (6, 7, -np.inf))):
+                q = reqs[0, j].copy()
+                q[spots[0], spots[1]] = spots[2]
+                g, d = bits_of(*c.query_arrays("l2-basis", q, k=FE_K,
+                                               n_probes=FE_PROBES))
+                wg, wd = idx.query(q, FE_K, FE_PROBES)
+                r = spots[0]
+                if not (same((g, d), bits_of(wg.cpu().numpy(),
+                                             wd.cpu().numpy()))
+                        and (g[r] == -1).all()
+                        and np.isposinf(d[r].view(np.float32)).all()):
+                    raise AssertionError(f"front end ({tier}): a query row "
+                                         f"holding {spots[2]} did not "
+                                         "answer (-1, +inf) as the direct "
+                                         "call")
+            # the embed verb (K4): bit-equal to Servable.embed
+            fv = np.asarray(probe_inputs(sv, rng, 64), np.float64)
+            e = c.embed("l2-basis", fv)
+            if not np.array_equal(e, sv.embed(fv).cpu().numpy()):
+                raise AssertionError(f"front end ({tier}): the embed verb "
+                                     "differs from Servable.embed")
+            # kernels a wire batch launches, beside a direct call's on the
+            # same rows: the network layer adds none
+            q32 = rows[:32]
+            nb = sv.batcher.n_batches
+            wire_k = kernels_in(dev, lambda: [c.query_arrays(
+                "l2-basis", q32, k=FE_K, n_probes=FE_PROBES)
+                for _ in range(2)])
+            nb = sv.batcher.n_batches - nb
+            direct_k = kernels_in(dev, lambda: [
+                [t.cpu() for t in idx.query(q32, FE_K, FE_PROBES)]
+                for _ in range(2)])
+            if wire_k is not None:
+                res["kernels_per_wire_batch"] = wire_k / nb
+                res["kernels_per_direct_call"] = direct_k / 2
+                if nb != 2 or wire_k != direct_k:
+                    raise AssertionError(
+                        f"front end ({tier}): {wire_k} kernels in {nb} wire "
+                        f"batches, {direct_k} in 2 direct calls")
+        res["wire_tenant"] = wire_tenant_leg(srv, reg, tier, rng)
+
+        with srv.client() as c:
+            # update: a new palette and deadline, answers unchanged
+            spec = dataclasses.asdict(sv.spec)
+            old_palette = tuple(spec["chunk_sizes"])
+            spec.update(chunk_sizes=list(FE_PALETTE), max_delay_ms=4.0)
+            r = c.update(spec)
+            if r["changed"] != ["chunk_sizes", "max_delay_ms"]:
+                raise AssertionError(f"front end ({tier}): update {r}")
+            upd, _, _ = wire_streams(srv.host, srv.port, "l2-basis",
+                                     reqs[:, :8])
+            if not all(same(upd[i][j], want[i][j]) for i in range(FE_STREAMS)
+                       for j in range(8)):
+                raise AssertionError(f"front end ({tier}): answers after "
+                                     "the update differ from "
+                                     "_query_stacked")
+            q12 = rows[:12]
+            if not same(bits_of(*c.query_arrays("l2-basis", q12, k=FE_K,
+                                                n_probes=FE_PROBES)),
+                        stacked_answer(idx, q12)):
+                raise AssertionError(f"front end ({tier}): a 12-row answer "
+                                     "after the update differs")
+            shapes = sorted({ch for ch, _k, _p in
+                             sv.batcher.shape_counts})
+            stats = c.stats("l2-basis")["report"]["batcher"]
+            if not (set(shapes) <= set(FE_PALETTE) and 16 in shapes
+                    and stats["unique_shapes"] == len(
+                        sv.batcher.shape_counts)):
+                raise AssertionError(f"front end ({tier}): shapes after the "
+                                     f"update {shapes}, {stats}")
+            r = c.request("update", spec=dict(spec, replication="static:2"))
+            if r.get("code") != "bad_request":
+                raise AssertionError(f"front end ({tier}): a replication "
+                                     f"update answered {r}")
+            res["update"] = {"old_palette": list(old_palette),
+                             "new_palette": list(FE_PALETTE),
+                             "shapes": shapes,
+                             "unique_shapes": stats["unique_shapes"]}
+            # health and stats
+            h = c.health()
+            if not (h["tenants"]["l2-basis"]["state"] == "ready"
+                    and h["totals"]["admitted"] == h["totals"]["settled"]
+                    and h["tenants"]["l2-basis"]["inflight"] == 0):
+                raise AssertionError(f"front end ({tier}): health {h}")
+            st = c.stats()
+            if st["catalog"] != sorted(CATALOG):
+                raise AssertionError(f"front end ({tier}): the stats "
+                                     "catalog is not the port's CATALOG")
+            res["totals"] = h["totals"]
+    finally:
+        srv.stop()
+
+    # overload: a second server with a tiny quota on the same registry
+    srv = BackgroundServer(reg, max_inflight=2, queue_depth=2)
+    try:
+        conns, per = FE_OVERLOAD
+
+        def blast(i):
+            out = []
+            with srv.client() as c:
+                for j in range(per):
+                    at = (i % FE_STREAMS, j % FE_REQUESTS)
+                    r = c.query("l2-basis", reqs[at], k=FE_K,
+                                n_probes=FE_PROBES)
+                    out.append((*at, r))
+            return out
+        outs, wall = on_threads(conns, blast)
+    finally:
+        srv.stop()
+    oks = [(i, j, r) for o in outs for i, j, r in o if r.get("ok")]
+    rejects = [r for o in outs for _i, _j, r in o if not r.get("ok")]
+    if not rejects or {r["code"] for r in rejects} - {"overloaded",
+                                                      "queue_full"} \
+            or not all(r.get("retry_after_ms", 0) > 0 for r in rejects):
+        raise AssertionError(f"front end ({tier}): overload gave "
+                             f"{len(rejects)} rejects, codes "
+                             f"{sorted({r.get('code') for r in rejects})}")
+    for i, j, r in oks:
+        if not same(bits_of(np.asarray(r["gids"], np.int32),
+                            np.asarray(r["dists"], np.float32)),
+                    want[i][j]):
+            raise AssertionError(f"front end ({tier}): an answer under "
+                                 "overload differs from _query_stacked")
+    res["overload"] = {
+        "connections": conns, "requests": conns * per, "ok": len(oks),
+        "rejects": len(rejects), "reject_share": len(rejects) / (conns * per),
+        "codes": {code: sum(r["code"] == code for r in rejects)
+                  for code in ("overloaded", "queue_full")},
+        "wall_s": wall}
+
+    # the export: every line on the catalog, every exercised series there
+    exercised = {x["name"] for x in obs_metrics.registry().collect()
+                 if x["name"].startswith(("frontend_", "tenant_lifecycle"))}
+    with tempfile.TemporaryDirectory(prefix="frontend-") as tmp:
+        exp = Exporter.for_directory(tmp)
+        exp.flush()
+        exp.close()
+        lines = [json.loads(x) for x in
+                 Path(tmp, "metrics.jsonl").read_text().splitlines()]
+    seen, off = set(), []
+    for x in lines:
+        if x["kind"] != "metric":
+            continue
+        spec = CATALOG.get(x["name"])
+        if spec is None or x["type"] != spec.type or sorted(
+                x["labels"]) != sorted(spec.labels):
+            off.append(x)
+        seen.add(x["name"])
+    missing = sorted((exercised | set(FE_SERIES)) - seen)
+    if off or missing:
+        raise AssertionError(f"front end ({tier}) export: {len(off)} lines "
+                             f"off the catalog (first {off[:1]}), series "
+                             f"missing {missing}")
+    res["export"] = {"lines": len(lines), "frontend_series":
+                     sorted(n for n in seen if n.startswith(
+                         ("frontend_", "tenant_lifecycle")))}
+    log(f"  [{smi}] frontend " + json.dumps(res))
+    return res
+
+
+def drain_leg(sv, card, smi):
+    """The child server on the card: ``python -m repro_torch.launch.serve
+    --listen 127.0.0.1:0 --tenants l2-basis`` (no ``--device``), at most
+    CHILD_TIMEOUT_S: FE_DRAIN_ROWS rows inserted over the wire, then
+    FE_DRAIN_STREAMS query streams and SIGTERM mid-traffic.  The child must
+    exit 0 with ``settled == admitted`` and ``inflight=0``, and each
+    stream's requests must be answered or refused ``shutting_down`` (one,
+    its last), none cut off.  Returns the numbers."""
+    import os
+    import re
+    import signal
+    import threading
+
+    from repro_torch.serve import FrontendClient, wait_ready
+    rng = np.random.default_rng(1212)
+    emb = sv.embed(probe_inputs(sv, rng, FE_DRAIN_ROWS)).cpu().numpy()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("REPRO_")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--listen",
+           "127.0.0.1:0", "--tenants", "l2-basis"]
+    if sv.index.device.type == "cpu":
+        cmd += ["--device", "cpu"]
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    lines, errs = [], []
+    readers = [threading.Thread(target=lambda f=f, out=out: out.extend(
+        ln.rstrip("\n") for ln in f), daemon=True)
+        for f, out in ((proc.stdout, lines), (proc.stderr, errs))]
+    for t in readers:
+        t.start()
+    try:
+        port = None
+        while port is None:
+            m = next((re.search(r"listening on [\d.]+:(\d+)", ln)
+                      for ln in list(lines) if "listening on" in ln), None)
+            if m:
+                port = int(m.group(1))
+                t_up = time.perf_counter() - t_start
+            elif proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("front end drain: the child did not "
+                                     f"listen: {lines} {errs[-20:]}")
+            else:
+                time.sleep(0.05)
+        wait_ready("127.0.0.1", port, timeout_s=120.0)
+        with FrontendClient("127.0.0.1", port, timeout_s=120.0) as c:
+            t0 = time.perf_counter()
+            for s in range(0, FE_DRAIN_ROWS, FE_FRAME):
+                c.insert("l2-basis", emb[s:s + FE_FRAME])
+            ingest_s = time.perf_counter() - t0
+        counts = [0] * FE_DRAIN_STREAMS
+        ends = [None] * FE_DRAIN_STREAMS
+
+        def stream(i):
+            r_ = np.random.default_rng(i)
+            with FrontendClient("127.0.0.1", port, timeout_s=120.0) as c:
+                while True:
+                    q = emb[r_.integers(0, FE_DRAIN_ROWS, size=FE_ROWS)]
+                    r = c.query("l2-basis", q, k=FE_K, n_probes=FE_PROBES)
+                    if not r.get("ok"):
+                        ends[i] = r.get("code")
+                        return
+                    if len(r["gids"]) != FE_ROWS:
+                        raise AssertionError(f"drain: answer {r}")
+                    counts[i] += 1
+        box = {}
+        runner = threading.Thread(target=lambda: box.update(
+            out=on_threads(FE_DRAIN_STREAMS, stream)))
+        runner.start()
+        while min(counts) < 20 and runner.is_alive() \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        runner.join(max(deadline - time.monotonic(), 1.0))
+        rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        drain_s = time.perf_counter() - t_sig
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        for t in readers:
+            t.join(60)
+    drained = next((ln for ln in lines if "drained:" in ln), "")
+    m = re.search(r"admitted=(\d+) settled=(\d+) rejected=(\d+) "
+                  r"inflight=(\d+)", drained)
+    if rc != 0 or "out" not in box or m is None or m.group(1) != \
+            m.group(2) or m.group(4) != "0" or set(ends) != {
+                "shutting_down"} or "[serve] OK" not in lines:
+        raise AssertionError(f"front end drain: rc {rc}, streams "
+                             f"{'ok' if 'out' in box else 'failed'}, ends "
+                             f"{ends}, drain line {drained!r}, stderr "
+                             f"{errs[-20:]}")
+    res = {"card": smi, "child_up_s": t_up, "rows_inserted": FE_DRAIN_ROWS,
+           "wire_ingest_rows_per_s": FE_DRAIN_ROWS / ingest_s,
+           "streams": FE_DRAIN_STREAMS, "answered": sum(counts),
+           "refused_shutting_down": ends.count("shutting_down"),
+           "admitted": int(m.group(1)), "settled": int(m.group(2)),
+           "rejected": int(m.group(3)), "drain_wall_s": drain_s}
+    log(f"  [{smi}] frontend drain " + json.dumps(res))
+    return res
+
+
 def run_paths(card, smi):
-    """Phases 6-10: the fp32 main path, the int8 path beside it (each with
-    two profiled batches), the simhash path, the compaction of both
-    tenants, the l1-qmc and w2-quantile tenants, then durability; the
-    launch counts of the runs summed, and the profiles and reports."""
+    """Phases 6-12: the fp32 main path (with phase 11 on its tenant), the
+    int8 path beside it (each with two profiled batches), the simhash
+    path, the compaction of both tenants, the front end over both, the
+    l1-qmc and w2-quantile tenants, then durability; the launch counts of
+    the runs summed, and the profiles and reports."""
     import gc
 
     import torch
 
     from repro_torch.serve import ServableRegistry
-    log(f"[6/11] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/12] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve_run(
@@ -2511,7 +3194,7 @@ def run_paths(card, smi):
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
     runs_extra, telemetry = [], None
     if has_telemetry():
-        log(f"[11/11] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
+        log(f"[11/12] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
             "(before phase 7): deep-traced staged batches, their stage "
             "spans, the export against the catalog")
         counts11, telemetry = drive(lambda: telemetry_phase(
@@ -2519,9 +3202,9 @@ def run_paths(card, smi):
             "telemetry")
         runs_extra.append(counts11)
     else:
-        log("[11/11] telemetry: this checkout has no obs package")
+        log("[11/12] telemetry: this checkout has no obs package")
 
-    log(f"[7/11] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/12] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -2537,7 +3220,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/11] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/12] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -2551,6 +3234,25 @@ def run_paths(card, smi):
         reg8, "int8", victims, prof8), card, smi, INT8_PATH,
         "compaction (int8)")
     compare_tiers(sv32, sv8, "compacted")
+    frontend = {}
+    if has_frontend():
+        log(f"[12/12] front end: a Frontend in this process on each tier's "
+            f"compacted tenant, {FE_STREAMS} connections x {FE_REQUESTS} "
+            f"requests of {FE_ROWS} rows, NaN rows, embed, a wire-loaded "
+            "l1-qmc tenant (ingest, compaction under queries, unload), "
+            "update, overload, health, stats and the export; then a child "
+            "server drained by SIGTERM")
+        t0 = time.perf_counter()
+        for tier, reg_, path in (("fp32", registry, FP32_PATH),
+                                 ("int8", reg8, INT8_PATH)):
+            c, frontend[f"frontend {tier}"] = drive(
+                lambda: frontend_phase(reg_, tier, card, smi), card, smi,
+                path, f"front end ({tier})")
+            runs_extra.append(c)
+        frontend["frontend drain"] = drain_leg(sv32, card, smi)
+        log(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
+    else:
+        log("[12/12] front end: this checkout has no network front end")
     keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
             "self_hit_rate")
     paths = {
@@ -2561,6 +3263,7 @@ def run_paths(card, smi):
     runs = [counts, counts8, counts7, counts_c, counts_c8] + runs_extra
     if telemetry is not None:
         paths["telemetry"] = telemetry
+    paths.update(frontend)
     # phase 9 holds two more 262,144-item tenants: let phases 6-8's go
     del registry, reg8, sv32, sv8
     gc.collect()
@@ -2569,11 +3272,11 @@ def run_paths(card, smi):
         counts9, paths["tenants"] = tenants_phase(card, smi)
         runs += counts9
     else:
-        log("[9/11] tenants: this checkout serves l2-basis only")
+        log("[9/12] tenants: this checkout serves l2-basis only")
     gc.collect()
     torch.cuda.empty_cache()
     if hasattr(ServableRegistry, "recover"):
-        log(f"[10/11] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
+        log(f"[10/12] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
             f"a snapshot and a warm standby, then {DURABLE_STEPS} steps; "
             "kill -9 at wal.append and at compact.swap in children, each "
             "recovered in a fresh child; fp32 then int8")
@@ -2585,7 +3288,7 @@ def run_paths(card, smi):
             runs.append(c)
         log(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[10/11] durability: this checkout has no WAL")
+        log("[10/12] durability: this checkout has no WAL")
     counts_all = {name: sum(c[name] for c in runs) for name in counts}
     return counts_all, paths
 
@@ -2647,7 +3350,7 @@ def tenants_phase(card, smi):
     from repro_torch.launch import w2_gate
     from repro_torch.serve import ServableRegistry
     names = ("l1-qmc", "w2-quantile")
-    log(f"[9/11] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+    log(f"[9/12] tenants: repro_torch.launch.serve, {', '.join(names)}, "
         f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
         "int8")
     params = {"mu": np.zeros(0), "sig": np.zeros(0)}
@@ -2840,11 +3543,12 @@ def durable_child(job: dict) -> int:
     return 0
 
 
-def run_child(job: dict):
-    """``chip_smoke.py --durable-child JOB`` in a fresh process on the
-    card, at most CHILD_TIMEOUT_S; returns the finished process."""
+def run_child(job: dict, mode: str = "--durable-child"):
+    """``chip_smoke.py --durable-child JOB`` (or another child ``mode``) in
+    a fresh process, at most CHILD_TIMEOUT_S; returns the finished
+    process."""
     return subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--durable-child",
+        [sys.executable, str(Path(__file__).resolve()), mode,
          json.dumps(job)], capture_output=True, text=True,
         timeout=CHILD_TIMEOUT_S, cwd=ROOT)
 
@@ -3020,14 +3724,18 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2 and 6-11 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-12 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
-                    "the telemetry, the compactions, the l1-qmc and "
+                    "the telemetry, the compactions, the front end, the "
+                    "l1-qmc and "
                     "w2-quantile tenants and durability, then one JSON "
                     "line of profiles and reports; to profile another "
                     "checkout, copy this script to its root")
     ap.add_argument("--durable-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--wire-client", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.wire_client is not None:
+        return wire_client(json.loads(args.wire_client))
     import torch
     if args.durable_child is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3043,14 +3751,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/11] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/12] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/11] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/12] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -3064,17 +3772,17 @@ def main(argv=None) -> int:
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/11] CPU (plain versions) vs card (kernels) parity")
+        log("[4/12] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
         k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
-        log(f"[5/11] timings, {smi}")
+        log(f"[5/12] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/11] kernel checks against the plain versions on the card: "
+    log("[3/12] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
         "saturated / infinite / NaN projections bit-equal, and with a "
@@ -3196,7 +3904,7 @@ def main(argv=None) -> int:
     check_nan_queries()
     check_query_batched()
 
-    log("[4/11] CPU (plain versions) vs card (kernels) parity")
+    log("[4/12] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
     k2_p1_inputs = None
@@ -3204,7 +3912,7 @@ def main(argv=None) -> int:
         k2_p1_inputs = parity_run("l1-qmc")
         parity_run("w2-quantile")
 
-    log("[5/11] timings (median of CUDA events over "
+    log("[5/12] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn, k2_p1_inputs)

@@ -12,6 +12,7 @@
     python -m repro_torch.launch.serve --device cpu --standby W  # SIGTERM
     python -m repro_torch.launch.serve --device cpu --metrics-dir M \
         --trace-sample 1.0 --trace-deep                     # telemetry
+    python -m repro_torch.launch.serve --listen 127.0.0.1:0 # network server
 
 The port of the scripted demo loop of ``repro/launch/serve.py``.  It
 serves the JAX demo's tenants (``default_specs``): ``l2-basis`` (p = 2,
@@ -56,6 +57,19 @@ and at the end, to ``DIR/metrics.jsonl`` (JSON lines, appended) and
 ``--trace-sample`` is the share of query traces sampled (default
 ``$REPRO_TRACE_SAMPLE`` or 0: off) and ``--trace-deep`` runs sampled fp32
 queries through the staged engine, a span and a device sync per stage.
+
+``--listen HOST:PORT`` serves live traffic instead of the demo loop, with
+the JAX launcher's knobs: the ``--tenants`` are registered from
+``default_specs`` (or restored, or recovered, as above), with no fill and
+no loop, and handed to the network front-end (``serve/frontend.py``):
+per-tenant admission control (``--max-inflight``, ``--queue-depth``),
+wall-clock micro-batch deadlines (``--max-delay-ms``), the ``maintenance``
+verb's ``--maint-workers`` background threads, and a graceful drain on
+SIGTERM or SIGINT (``--drain-timeout``, per tenant
+``--tenant-drain-timeout NAME=SECS``).  It prints ``[frontend] listening
+on H:P`` once bound (port 0 picks a free one) and the drain line on the
+way out, then exits 0; ``--metrics-dir`` exports the front end's series
+every half second and at the end.
 """
 
 from __future__ import annotations
@@ -71,7 +85,7 @@ import torch
 
 from ..kernels import dispatch
 from ..obs import Exporter, configure as obs_configure
-from ..serve import ServableRegistry, ServableSpec, recall_proxy
+from ..serve import ServableRegistry, ServableSpec, recall_proxy, run_server
 
 TENANTS = ("l2-basis", "l1-qmc", "w2-quantile")
 W2_DRAWS = 256          # raw draws per distribution the W^2 tenant ingests
@@ -173,8 +187,8 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
         delete_frac: float = 0.05, compact_at: float = 0.3, n_dims: int = 64,
         segment_capacity: int = 1024, recall_probe_size: int = 64,
         self_hit_probes: int = 64, fill_batch: int = 8192, seed: int = 0,
-        precision: str = "fp32", registry=None, on_insert=None,
-        exporter=None, log=print) -> dict:
+        precision: str = "fp32", max_delay_ms: float = 2.0, registry=None,
+        on_insert=None, exporter=None, log=print) -> dict:
     """Fill, run the demo loop, and return the report: one entry per
     tenant, by name, as ``registry.report()`` gives.  ``tenants`` names
     some of :data:`TENANTS` (None: all three).  The tenants are registered
@@ -192,8 +206,9 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
     dev = registry.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    specs = {sp.name: sp for sp in default_specs(n_dims, segment_capacity,
-                                                 precision=precision)}
+    specs = {sp.name: sp for sp in default_specs(
+        n_dims, segment_capacity, max_delay_ms=max_delay_ms,
+        precision=precision)}
     svs, rngs = {}, {}
     for name in sorted(names):
         # a tenant the registry already holds (restored) is served as is
@@ -362,6 +377,29 @@ def main(argv=None) -> dict:
                     help="run sampled fp32 queries through the staged "
                          "engine, a span per stage (default "
                          "$REPRO_TRACE_DEEP)")
+    ap.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="micro-batcher flush deadline per tenant")
+    ap.add_argument("--listen", default=None, metavar="HOST:PORT",
+                    help="serve live traffic instead of the demo loop: "
+                         "bind the network front-end here (port 0 picks a "
+                         "free port, printed as '[frontend] listening on "
+                         "H:P'), run until SIGTERM, then drain")
+    ap.add_argument("--max-inflight", type=int, default=64,
+                    help="per-tenant admitted-but-unanswered request quota")
+    ap.add_argument("--queue-depth", type=int, default=256,
+                    help="per-tenant batcher queue-depth cap sampled at "
+                         "admission (beyond it: queue_full + "
+                         "retry_after_ms)")
+    ap.add_argument("--drain-timeout", type=float, default=10.0,
+                    help="graceful-drain backstop on SIGTERM and unload "
+                         "(seconds)")
+    ap.add_argument("--tenant-drain-timeout", action="append", default=[],
+                    metavar="NAME=SECS",
+                    help="per-tenant drain budget (repeatable); tenants "
+                         "not named keep --drain-timeout")
+    ap.add_argument("--maint-workers", type=int, default=None,
+                    help="background threads of the 'maintenance' verb "
+                         "(default $REPRO_MAINT_WORKERS or 1)")
     args = ap.parse_args(argv)
     if args.trace_sample is not None or args.trace_deep:
         obs_configure(sample_rate=args.trace_sample,
@@ -385,6 +423,8 @@ def main(argv=None) -> dict:
     elif args.restore:
         print(f"[serve] restored tenants {registry.restore(args.restore)} "
               f"from {args.restore}")
+    if args.listen:
+        return listen(args, registry, exporter)
     report = run(registry=registry,
                  tenants=[t for t in args.tenants.split(",") if t],
                  n_items=args.n_items, steps=args.steps,
@@ -395,7 +435,8 @@ def main(argv=None) -> dict:
                  compact_at=args.compact_at,
                  n_dims=args.n_dims, segment_capacity=args.segment_capacity,
                  recall_probe_size=args.recall_probe_size, seed=args.seed,
-                 precision=args.precision, exporter=exporter)
+                 precision=args.precision, max_delay_ms=args.max_delay_ms,
+                 exporter=exporter)
     if args.snapshot:
         registry.snapshot(args.snapshot, step=args.steps)
         print(f"[serve] snapshot -> {args.snapshot}")
@@ -419,6 +460,39 @@ def main(argv=None) -> dict:
     print("[serve] report:", json.dumps(report))
     print("[serve] OK")
     return report
+
+
+def listen(args, registry, exporter) -> dict:
+    """``--listen`` mode: register the ``--tenants`` (unless restored or
+    recovered), serve them until SIGTERM, drain; returns the gate's
+    totals."""
+    if not args.restore:
+        names = [t for t in args.tenants.split(",") if t]
+        unknown = sorted(set(names) - set(TENANTS))
+        if unknown:
+            raise ValueError(f"unknown tenants {unknown}; have {TENANTS}")
+        for spec in default_specs(args.n_dims, args.segment_capacity,
+                                  max_delay_ms=args.max_delay_ms,
+                                  precision=args.precision):
+            if spec.name in names:
+                registry.register(spec)
+        print(f"[serve] registered tenants {registry.names()}", flush=True)
+    host, _, port = args.listen.rpartition(":")
+    overrides = {}
+    for item in args.tenant_drain_timeout:
+        name, _, secs = item.partition("=")
+        overrides[name] = float(secs)
+    totals = run_server(registry, host or "127.0.0.1", int(port or 0),
+                        max_inflight=args.max_inflight,
+                        queue_depth=args.queue_depth,
+                        drain_timeout_s=args.drain_timeout,
+                        tenant_drain_timeouts=overrides or None,
+                        maint_workers=args.maint_workers, exporter=exporter)
+    if exporter is not None:
+        exporter.close()
+        print(f"[serve] telemetry -> {args.metrics_dir}")
+    print("[serve] OK", flush=True)
+    return totals
 
 
 def standby(wal_dir: str, device=None, fsync_every=None) -> dict:

@@ -1,14 +1,23 @@
 """Deadline-driven micro-batcher over a fixed chunk-shape palette.
 
-The port's own copy of ``repro/serve/batcher.py`` (the wall-clock pump
-thread left out; the front-end that needs the thread is a later slice).
-Requests with one (k, n_probes) signature share a row buffer; a signature
-flushes when a full largest chunk is queued or its oldest
-request's deadline (``max_delay_ms``) passes, and every flush is padded up
-to a palette size, so the index only ever sees ``len(chunk_sizes)`` query
-shapes per signature.  ``submit`` returns a Future; ``pump`` (called by the
-serving loop, or by tests with an injected clock) decides flushes;
+The port's own copy of ``repro/serve/batcher.py``.  Requests with one
+(k, n_probes) signature share a row buffer; a signature flushes when a
+full largest chunk is queued or its oldest request's deadline
+(``max_delay_ms``) passes, and every flush is padded up to a palette size,
+so the index only ever sees ``len(chunk_sizes)`` query shapes per
+signature.  ``submit`` returns a Future; ``pump`` decides flushes;
 ``flush_all`` drains everything.
+
+Two clock modes share the one code path:
+
+* **injected clock** (tests, the demo loop): construct with ``clock=sim``
+  and call ``pump(now)`` by hand, with no thread;
+* **wall clock** (the network front-end): ``start()`` runs a pump thread
+  that sleeps until the earliest pending deadline (a condition wait that
+  ``submit`` wakes early) and then calls the same ``pump``, so the thread
+  changes when batches run, never what they hold.  ``stop()`` joins it
+  and flushes what is left.  The pump thread launches the index's
+  kernels; ``dispatch.resolve_device`` pins the index's card for it.
 
 Telemetry, as the JAX batcher's: a request's trace starts at admission
 (the submitter's context, or a new one at the sample rate: None when
@@ -75,6 +84,9 @@ class MicroBatcher:
         self.n_batches = 0
         self._q: Dict[Tuple[int, int], List[_Pending]] = {}
         self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._thread: Optional[threading.Thread] = None
+        self._stop = False
 
     def submit(self, queries, k: int, n_probes: int = 1) -> Future:
         """Enqueue a (nq, N) request; resolves to (ids (nq, k), dists)."""
@@ -89,9 +101,10 @@ class MicroBatcher:
         req = _Pending(queries=q, k=int(k), n_probes=int(n_probes),
                        deadline=now + self.max_delay, submitted=now,
                        ctx=ctx)
-        with self._lock:
+        with self._wake:
             self._q.setdefault((req.k, req.n_probes), []).append(req)
             self.n_requests += 1
+            self._wake.notify()
         return req.future
 
     def query(self, queries, k: int, n_probes: int = 1):
@@ -187,6 +200,66 @@ class MicroBatcher:
             r.future.set_result((all_i[pos:pos + m], all_d[pos:pos + m]))
             pos += m
         return batches
+
+    # -- wall-clock pump ----------------------------------------------------
+
+    def start(self) -> "MicroBatcher":
+        """Start the pump thread (no-op while one runs)."""
+        if self._thread is not None:
+            return self
+        self._stop = False
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name=f"pump-{self.tenant}")
+        self._thread.start()
+        return self
+
+    def stop(self, timeout_s: Optional[float] = None) -> None:
+        """Stop and join the pump thread, then flush what is queued."""
+        with self._wake:
+            self._stop = True
+            self._wake.notify()
+        if self._thread is not None:
+            self._thread.join(timeout_s)
+            if self._thread.is_alive():
+                raise TimeoutError(f"pump thread of {self.tenant!r} still "
+                                   f"running after {timeout_s}s")
+            self._thread = None
+        self.flush_all()
+
+    def _wait_s(self) -> Optional[float]:
+        """Seconds until the earliest flush (callers hold the lock): None
+        when the queue is empty (park until a submit), 0.0 to flush now (a
+        signature filled the largest chunk or its oldest deadline
+        passed)."""
+        max_chunk = self.chunk_sizes[-1]
+        now = self.clock()
+        best: Optional[float] = None
+        for reqs in self._q.values():
+            if not reqs:
+                continue
+            if sum(r.queries.shape[0] for r in reqs) >= max_chunk:
+                return 0.0
+            dt = reqs[0].deadline - now
+            best = dt if best is None else min(best, dt)
+        return None if best is None else max(best, 0.0)
+
+    def _loop(self) -> None:
+        while True:
+            with self._wake:
+                if self._stop:
+                    return
+                wait = self._wait_s()
+                if wait is None:
+                    self._wake.wait(timeout=0.05)
+                elif wait > 0.0:
+                    self._wake.wait(timeout=wait)
+                if self._stop:
+                    return
+            try:
+                self.pump()
+            except Exception:  # noqa: BLE001 -- _dispatch routed the
+                # error to the batch's futures; the thread serves the rest
+                pass
 
     def unique_shapes(self) -> int:
         """Distinct padded (chunk, k, n_probes) shapes dispatched so far."""

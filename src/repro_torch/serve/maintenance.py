@@ -31,15 +31,19 @@ end ``maintenance_jobs_total{tenant, kind, status}`` and
 ``maintenance_job_latency_s{tenant, kind}`` (dequeue to completion),
 before the job reads as done, so a caller that waited sees them.
 
-Not ported yet: the ``set_replication`` kind, the ``auto`` re-placement
-and ``refresh_placement`` (multi-device serving) and the wire
-``maintenance`` verb (network front-end).
+The wire ``maintenance`` verb (``serve/frontend.py``) maps onto
+:meth:`MaintenancePool.submit` and ``job_status`` onto
+:meth:`MaintenancePool.status`; the kinds are the protocol's
+``MAINTENANCE_KINDS``.  Not ported yet (multi-device serving): the
+``set_replication`` kind, the ``auto`` re-placement and
+``refresh_placement``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import queue
 import threading
 import time
@@ -48,7 +52,7 @@ from typing import Any, Dict, Optional
 
 from ..obs import metrics as obs_metrics
 
-#: job kinds the pool accepts
+#: job kinds the pool (and the wire ``maintenance`` verb) accepts
 KINDS = ("seal", "compact")
 
 
@@ -99,10 +103,13 @@ class MaintenanceJob:
     job_id: str
     tenant: str
     kind: str
+    params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     status: str = "queued"        # queued | running | done | failed
     result: Optional[Dict[str, Any]] = None
     error: Optional[str] = None
     traceback: Optional[str] = None
+    submitted_s: float = 0.0      # time.monotonic() at submit
+    finished_s: float = 0.0       # and at the job's end
 
     def to_dict(self) -> dict:
         out = {"job_id": self.job_id, "tenant": self.tenant,
@@ -118,15 +125,18 @@ class MaintenanceJob:
 class MaintenancePool:
     """Background maintenance workers over a ``ServableRegistry``.
 
-    A FIFO job queue drained by ``workers`` daemon threads.  A per-tenant
+    A FIFO job queue drained by ``workers`` daemon threads (None reads
+    ``$REPRO_MAINT_WORKERS``, default 1).  A per-tenant
     lock keeps at most one job per tenant running even with several
     workers; different tenants' jobs run at once.  A tenant is looked up
     when its job runs, so a job for an unknown tenant fails with a
     structured error and the worker goes on.
     """
 
-    def __init__(self, registry, workers: int = 1):
+    def __init__(self, registry, workers: Optional[int] = None):
         self._registry = registry
+        if workers is None:
+            workers = int(os.environ.get("REPRO_MAINT_WORKERS", "1"))
         self.workers = max(1, int(workers))
         self._queue: "queue.Queue" = queue.Queue()
         self._jobs: Dict[str, MaintenanceJob] = {}
@@ -143,10 +153,12 @@ class MaintenancePool:
 
     # -- submission / polling -----------------------------------------------
 
-    def submit(self, tenant: str, kind: str) -> str:
+    def submit(self, tenant: str, kind: str, **params) -> str:
         """Queue one job; returns its id at once (poll with
-        :meth:`status`).  Raises ValueError on an unknown kind and
-        RuntimeError once the pool is stopped."""
+        :meth:`status`).  ``params`` are kept on the job (``seal`` and
+        ``compact`` read none).  Raises ValueError on an unknown kind (the
+        wire layer answers ``bad_request``) and RuntimeError once the pool
+        is stopped."""
         if kind not in KINDS:
             raise ValueError(f"unknown maintenance kind {kind!r}; want one "
                              f"of {KINDS}")
@@ -154,7 +166,9 @@ class MaintenancePool:
             raise RuntimeError("maintenance pool is stopped")
         with self._lock:
             job = MaintenanceJob(job_id=f"mj-{next(self._ids)}",
-                                 tenant=str(tenant), kind=kind)
+                                 tenant=str(tenant), kind=kind,
+                                 params=dict(params),
+                                 submitted_s=time.monotonic())
             self._jobs[job.job_id] = job
         self._set_depth()
         self._queue.put(job.job_id)
@@ -244,6 +258,7 @@ class MaintenancePool:
                         tenant=job.tenant, kind=job.kind)
             with self._lock:
                 job.result, job.error, job.traceback = result, error, tb
+                job.finished_s = time.monotonic()
                 job.status = status
             self._set_depth()
 

@@ -36,8 +36,15 @@ under an ``embed`` span, ``report()`` carries the registry's
 ``"metrics"`` summary of the tenant, and ``recover`` runs each restore
 under ``recover.restore`` and each replay under ``recover.replay``,
 counting ``recovery_restores_total`` and
-``recovery_replayed_records_total``.  Not ported yet: ``log_lifecycle``
-and ``unregister`` (the network front-end's lifecycle).
+``recovery_replayed_records_total``.
+
+The network front-end's tenant lifecycle, as the JAX registry's:
+``log_lifecycle`` counts ``tenant_lifecycle_transitions_total`` and appends
+a synced LIFECYCLE record to the tenant's WAL (recovery and the standby
+skip a tenant whose log ends "unloaded"); ``unregister`` drops the tenant
+and stops its batcher's pump thread, after which nothing of the registry
+holds its tensors.  Not ported yet (multi-device serving): placement
+across devices and ``set_replication``.
 """
 
 from __future__ import annotations
@@ -153,12 +160,17 @@ class Servable:
         # the tenant's maintenance handle (seal, compact); the
         # MaintenancePool is its background caller
         self.maintenance = ServableMaintenance(self)
-        self.batcher = MicroBatcher(self._raw_query,
-                                    chunk_sizes=spec.chunk_sizes,
-                                    max_delay_ms=spec.max_delay_ms,
-                                    on_batch=self.stats.record_batch,
-                                    on_answer=self.index.fanout_telemetry,
-                                    tenant=spec.name)
+        self.batcher = self.make_batcher(spec)
+
+    def make_batcher(self, spec: ServableSpec) -> MicroBatcher:
+        """A micro-batcher over this tenant's query path with ``spec``'s
+        palette and deadline (the front-end's ``update`` builds its new
+        one here too, so segment wins stay counted after an update)."""
+        return MicroBatcher(self._raw_query, chunk_sizes=spec.chunk_sizes,
+                            max_delay_ms=spec.max_delay_ms,
+                            on_batch=self.stats.record_batch,
+                            on_answer=self.index.fanout_telemetry,
+                            tenant=spec.name)
 
     def embed(self, fvals) -> torch.Tensor:
         """Function samples (B, len(nodes())) -> (B, n_dims) embeddings on
@@ -289,6 +301,29 @@ class ServableRegistry:
             return self._servables[name]
         except KeyError:
             raise KeyError(f"no servable {name!r}; have {self.names()}")
+
+    def log_lifecycle(self, name: str, state: str) -> None:
+        """Count the transition (``tenant_lifecycle_transitions_total``)
+        and append a LIFECYCLE record to the tenant's WAL, synced at once:
+        an unloaded tenant must not come back because its record was still
+        in the group-commit window when the process died.  Replay treats
+        the record as a no-op; ``recover`` skips a tenant whose log ends
+        "unloaded"."""
+        obs_metrics.registry().inc("tenant_lifecycle_transitions_total",
+                                   tenant=name, state=state)
+        sv = self._servables.get(name)
+        wal = sv.index.wal if sv is not None else None
+        if wal is not None:
+            wal.append(walmod.encode_lifecycle(state))
+            wal.sync()
+
+    def unregister(self, name: str) -> None:
+        """Drop the tenant and stop its batcher's pump thread (queued
+        requests are flushed first)."""
+        with self._lock:
+            sv = self._servables.pop(name, None)
+            if sv is not None:
+                sv.batcher.stop()
 
     def names(self) -> List[str]:
         return sorted(self._servables)

@@ -827,3 +827,59 @@ def test_query_index_batched_on_the_card(gen):
         if any(i >= 0 and bool(near_item[i]) for i in diff):
             ok[r] = False
     _assert_topk_matches(bd[ok], bi[ok], pd[ok], pi[ok], exact=False)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_wire_answers_bit_equal_on_the_card(gen, precision):
+    """The network front-end in this process over a registry on the card:
+    16 connections' wire answers (gids and distance bits) equal the direct
+    query of the same rows, NaN rows answer (-1, +inf), and the embed verb
+    equals ``Servable.embed``; every kernel of the tier's path launched."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve import BackgroundServer, ServableRegistry
+    reg = ServableRegistry(device="cuda")
+    serve.run(registry=reg, tenants=("l2-basis",), n_items=4096, steps=1,
+              recall_probe_size=8, precision=precision, log=lambda *a: None)
+    sv = reg.get("l2-basis")
+    rng = np.random.default_rng(3)
+    rows = [sv.embed(serve.sample_fvals(rng, sv.nodes(), 8)).cpu().numpy()
+            for _ in range(16)]
+    got = {}
+    with BackgroundServer(reg, metrics=obs_metrics.MetricsRegistry(),
+                          maint_workers=1, drain_timeout_s=5.0,
+                          timeout_s=60.0) as srv:
+        dispatch.reset_launches()
+
+        def stream(i):
+            with srv.client() as c:
+                got[i] = c.query_arrays("l2-basis", rows[i], k=10,
+                                        n_probes=4)
+        ts = [threading.Thread(target=stream, args=(i,)) for i in range(16)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        with srv.client() as c:
+            nan = rows[0].copy()
+            nan[1, 0] = np.nan
+            g, d = c.query_arrays("l2-basis", nan, k=10, n_probes=4)
+            assert (g[1] == -1).all() and np.isposinf(d[1]).all()
+            fv = serve.sample_fvals(rng, sv.nodes(), 5)
+            assert np.array_equal(c.embed("l2-basis", fv),
+                                  sv.embed(fv.astype(np.float64))
+                                  .cpu().numpy())
+        torch.cuda.synchronize()
+        path = INT8_PATH if precision == "int8" else FP32_PATH
+        assert all(dispatch.launches[k] > 0 for k in path)
+    assert len(got) == 16
+    for i, (g, d) in got.items():
+        # the direct call: the stacked query (int8: and its rescore)
+        wg, wd = sv.index.query(rows[i], 10, 4)
+        assert np.array_equal(g, wg.cpu().numpy())
+        assert np.array_equal(d.view(np.int32),
+                              wd.cpu().numpy().view(np.int32))

@@ -147,3 +147,35 @@ def test_the_obs_package_is_covered_and_stdlib_only():
             for n in names:
                 assert n.split(".")[0] in sys.stdlib_module_names | {
                     "__future__"}, (path.name, n)
+
+
+@pytest.mark.parametrize("name", ["protocol", "client"])
+def test_wire_modules_import_only_stdlib_and_numpy(name):
+    """``serve/protocol.py`` and ``serve/client.py`` are the port's own
+    copies of the JAX package's: the standard library and numpy, and
+    nothing of the port beyond the protocol."""
+    tree = ast.parse((PKG / "serve" / f"{name}.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                assert node.module is None and [a.name for a in node.names] \
+                    == ["protocol"], ast.dump(node)
+                continue
+            names = [node.module]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] in sys.stdlib_module_names | {
+                "__future__", "numpy"}, (name, n)
+
+
+def test_front_end_modules_are_in_the_package():
+    mods = set(_modules())
+    assert {"repro_torch.serve.protocol", "repro_torch.serve.frontend",
+            "repro_torch.serve.client"} <= mods
+    from repro_torch import serve
+    for name in ("Frontend", "FrontendClient", "FrontendError",
+                 "RequestGate", "run_server", "wait_ready"):
+        assert name in serve.__all__ and hasattr(serve, name)
