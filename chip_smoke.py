@@ -20,7 +20,10 @@ each of which raises on failure (the script then exits non-zero):
    (``"l2"``); K1 through ``LazyPStableHash`` (p = 1.5, alpha grown from
    128 to 384 rows) and a p = 0.5 ``PStableHash``; K2 and K5 at the
    stacked launches' shapes, 258 segments x 32 and x 128 rows, at p = 2
-   and p = 1, K5 with one scale per segment;
+   and p = 1, K5 with one scale per segment; ``ops.merge_topk_unique``
+   (the sharded fan-in: two K3 launches) at 32 and 128 rows x 8 ranks x k
+   10 and 40, bit for bit against its plain version, on rows holding
+   replica copies, and equal to ``merge_topk`` on rows without;
    K6 at five widths and three metrics, aligned and not; K7 bit for bit
    against its fmaf chain at five shapes, aligned and not, and across
    batch sizes; the tie check over 8 seeds; query rows holding a NaN or
@@ -119,8 +122,9 @@ each of which raises on failure (the script then exits non-zero):
    before or after the job), an unknown job id, ``unload`` (drained, then
    ``unknown_tenant``) and ``torch.cuda.memory_allocated`` back within 5%
    of its value before the ``load``; ``update`` of the palette and
-   deadline (answers unchanged, the new palette in ``unique_shapes``, a
-   replication update ``bad_request``); ``health`` and ``stats`` (the
+   deadline (answers unchanged, the new palette in ``unique_shapes``; a
+   malformed replication policy ``bad_request``, a replication update
+   accepted with no answer moved); ``health`` and ``stats`` (the
    catalog equal to ``CATALOG``); a second ``Frontend`` with
    ``max_inflight=2, queue_depth=2`` under 32 connections (nonzero
    ``overloaded`` / ``queue_full`` rejects, each with ``retry_after_ms``,
@@ -133,7 +137,30 @@ each of which raises on failure (the script then exits non-zero):
    stream ending in one ``shutting_down``; the drain wall.  One
    ``frontend {...}`` line per tier and one for the drain.
 
-Launch counts are read around each of phases 6-12.
+13. sharded path, after every other phase's tenants are released: the
+   slice's path through ``repro_torch.launch.serve.run`` on an 8-rank
+   serve mesh over the one card (``make_serve_mesh(8)``), l2-basis at
+   262,144 items then 20 steps, fp32 (``replicate="auto"``) then int8.
+   Per tier: 64 probes as two 32-row batches and 128 as one, sharded
+   unreplicated, at static:2 routed (three rounds) and at static:2 with
+   every replica answering, gids and distance bits equal to the same index
+   after ``unshard()``; ``shard_layout()`` n_dev 8, per_dev 33 / 65,
+   n_instances 257 / 514; a profiled 32-row batch with K1 / K2+K5 / K3
+   launches 1 / 9 / 10 (11 at int8: the survivor sort); p50 and rate of
+   50 32-row batches sharded, then unsharded; the card bytes of each
+   rank's block and at peak.  At fp32 also: one seal through the
+   maintenance handle moves at most two segments' bytes
+   (``placement_replaced_bytes_total``) against the restack counter's
+   whole stack; a skewed stream (rows near items of 4 sealed segments),
+   35% deleted, and a ``MaintenancePool`` compaction under streamed
+   batches (none torn) whose auto factors exceed 1 on the hot segments,
+   then the skewed stream routed (``device_imbalance`` unrouted and
+   routed, ``device_load_imbalance``) and the answers equal to
+   ``unshard()``'s; a ``maintenance`` frame of kind ``set_replication``
+   and an ``update`` of ``replication`` over the wire, answers bit-equal
+   to direct calls.  One ``sharded {...}`` line per tier.
+
+Launch counts are read around each of phases 6-13.
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -145,7 +172,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2 and 6-12 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-13 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -1146,6 +1173,73 @@ def check_merge_select(gen):
         "signs of zero included (as values only where a row pairs one id "
         "with both signs); the mixed row [0, -0, 0, -0, 1, 2, -0, 0] gives "
         "ids [1, 3, 4, 5] and distances [0, -0, 0, -0]")
+
+
+def fanin_rows(gen, rows, n_dev, k, replicas):
+    """A replicated fan-in's input on the CPU: ``n_dev`` ranks' sorted
+    (distance, gid) runs of ``k`` pairs a row, gids distinct within a row
+    (an item lives in one segment) but where ``replicas`` lists (rank,
+    source rank) pairs: that rank repeats the source's run bit for bit, as
+    a replica does; the last rank's tail is empty (+inf, -1)."""
+    import torch
+    d = torch.sort(torch.round(torch.rand((rows, n_dev, k), generator=gen)
+                               * 200) / 200, dim=-1).values
+    g = torch.stack([torch.randperm(50 * n_dev * k, generator=gen)[:n_dev * k]
+                     for _ in range(rows)]).view(rows, n_dev, k).to(
+        torch.int32)
+    for r, src in replicas:
+        d[:, r], g[:, r] = d[:, src], g[:, src]
+    d[:, -1, k - 3:], g[:, -1, k - 3:] = torch.inf, -1
+    return d.reshape(rows, -1), g.reshape(rows, -1)
+
+
+def check_merge_unique(gen):
+    """``ops.merge_topk_unique`` (the sharded fan-in: K3's full sort, the
+    adjacent-gid dedup, K3's first k) on the card bit for bit against its
+    plain version on the same card tensors and on the CPU, at the fan-in
+    shapes (32 and 128 rows x 8 ranks x k 10, and x k 40 at int8), on rows
+    holding replica copies; two K3 launches a call; and on rows without a
+    copy bit-equal to ``ops.merge_topk``."""
+    import torch
+    from repro_torch.kernels import dispatch, ops, ref
+    n = 0
+    for rows in (32, 128):
+        for k in (10, 40):
+            for replicas in (((3, 1), (6, 1), (7, 2)), ()):
+                d, g = fanin_rows(gen, rows, 8, k, replicas)
+                dc, gc_ = d.cuda(), g.cuda()
+                before = dispatch.launches["merge"]
+                got = ops.merge_topk_unique(dc, gc_, k)
+                if dispatch.launches["merge"] != before + 2:
+                    raise AssertionError("merge_topk_unique: not two K3 "
+                                         "launches")
+                for want in (ref.merge_topk_unique_ref(dc, gc_, k),
+                             ref.merge_topk_unique_ref(d, g, k)):
+                    if not (torch.equal(got[1].cpu(), want[1].cpu()) and
+                            torch.equal(bits(got[0].cpu()),
+                                        bits(want[0].cpu()))):
+                        raise AssertionError(
+                            f"merge_topk_unique ({rows}, 8 x {k}), "
+                            f"replicas {replicas}: not bit-identical to its "
+                            "plain version")
+                real = got[1].cpu()
+                for row in real:
+                    kept = row[row >= 0]
+                    if kept.numel() != torch.unique(kept).numel():
+                        raise AssertionError("merge_topk_unique kept a "
+                                             "replica copy")
+                if not replicas:
+                    plain = ops.merge_topk(dc, gc_, k)
+                    if not (torch.equal(got[1], plain[1]) and
+                            torch.equal(bits(got[0]), bits(plain[0]))):
+                        raise AssertionError(
+                            f"merge_topk_unique ({rows}, 8 x {k}) without "
+                            "copies differs from merge_topk")
+                n += 1
+    log(f"  merge_topk_unique at (32, 128) rows x 8 ranks x k (10, 40), with "
+        f"and without replica copies: {n} inputs bit-identical to the plain "
+        "version (card and CPU), two K3 launches each, no copy kept, and "
+        "equal to merge_topk where no row holds a copy")
 
 
 NAN_ENTRY_POINTS = ("pstable_hash_proj", "fused_query_topk",
@@ -2927,23 +3021,30 @@ def frontend_phase(reg, tier, card, smi):
                 raise AssertionError(f"front end ({tier}): the embed verb "
                                      "differs from Servable.embed")
             # kernels a wire batch launches, beside a direct call's on the
-            # same rows: the network layer adds none
+            # same rows: the network layer adds none.  A profiled window
+            # now and then reports a few kernels fewer than were launched
+            # (PERF.md, phase 12), so each side is profiled three times, in
+            # turns, and the largest counts are compared
             q32 = rows[:32]
-            nb = sv.batcher.n_batches
-            wire_k = kernels_in(dev, lambda: [c.query_arrays(
-                "l2-basis", q32, k=FE_K, n_probes=FE_PROBES)
-                for _ in range(2)])
-            nb = sv.batcher.n_batches - nb
-            direct_k = kernels_in(dev, lambda: [
-                [t.cpu() for t in idx.query(q32, FE_K, FE_PROBES)]
-                for _ in range(2)])
-            if wire_k is not None:
-                res["kernels_per_wire_batch"] = wire_k / nb
+            wire_ks, direct_ks, nbs = [], [], []
+            for _ in range(3):
+                nb = sv.batcher.n_batches
+                wire_ks.append(kernels_in(dev, lambda: [c.query_arrays(
+                    "l2-basis", q32, k=FE_K, n_probes=FE_PROBES)
+                    for _ in range(2)]))
+                nbs.append(sv.batcher.n_batches - nb)
+                direct_ks.append(kernels_in(dev, lambda: [
+                    [t.cpu() for t in idx.query(q32, FE_K, FE_PROBES)]
+                    for _ in range(2)]))
+            if wire_ks[0] is not None:
+                wire_k, direct_k = max(wire_ks), max(direct_ks)
+                res["kernels_per_wire_batch"] = wire_k / 2
                 res["kernels_per_direct_call"] = direct_k / 2
-                if nb != 2 or wire_k != direct_k:
+                res["kernels_profiled_wire_direct"] = [wire_ks, direct_ks]
+                if nbs != [2, 2, 2] or wire_k != direct_k:
                     raise AssertionError(
-                        f"front end ({tier}): {wire_k} kernels in {nb} wire "
-                        f"batches, {direct_k} in 2 direct calls")
+                        f"front end ({tier}): {wire_ks} kernels in {nbs} "
+                        f"wire batches, {direct_ks} in 2 direct calls")
         res["wire_tenant"] = wire_tenant_leg(srv, reg, tier, rng)
 
         with srv.client() as c:
@@ -2975,10 +3076,24 @@ def frontend_phase(reg, tier, card, smi):
                         sv.batcher.shape_counts)):
                 raise AssertionError(f"front end ({tier}): shapes after the "
                                      f"update {shapes}, {stats}")
-            r = c.request("update", spec=dict(spec, replication="static:2"))
+            # a malformed policy is refused; a replication update of this
+            # unsharded tenant is accepted and places nothing (phase 13
+            # re-places a sharded one over the wire)
+            r = c.request("update", spec=dict(spec, replication="static:0"))
             if r.get("code") != "bad_request":
+                raise AssertionError(f"front end ({tier}): a malformed "
+                                     f"replication update answered {r}")
+            r = c.request("update", spec=dict(spec, replication="static:2"))
+            if not (r.get("ok") and r["changed"] == ["replication"]
+                    and idx.shard_layout() is None):
                 raise AssertionError(f"front end ({tier}): a replication "
                                      f"update answered {r}")
+            if not same(bits_of(*c.query_arrays("l2-basis", q12, k=FE_K,
+                                                n_probes=FE_PROBES)),
+                        stacked_answer(idx, q12)):
+                raise AssertionError(f"front end ({tier}): an answer after "
+                                     "the replication update differs")
+            c.update(spec)
             res["update"] = {"old_palette": list(old_palette),
                              "new_palette": list(FE_PALETTE),
                              "shapes": shapes,
@@ -3172,17 +3287,18 @@ def drain_leg(sv, card, smi):
 
 
 def run_paths(card, smi):
-    """Phases 6-12: the fp32 main path (with phase 11 on its tenant), the
+    """Phases 6-13: the fp32 main path (with phase 11 on its tenant), the
     int8 path beside it (each with two profiled batches), the simhash
     path, the compaction of both tenants, the front end over both, the
-    l1-qmc and w2-quantile tenants, then durability; the launch counts of
-    the runs summed, and the profiles and reports."""
+    l1-qmc and w2-quantile tenants, durability, then the sharded path;
+    the launch counts of the runs summed, and the profiles and
+    reports."""
     import gc
 
     import torch
 
     from repro_torch.serve import ServableRegistry
-    log(f"[6/12] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/13] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve_run(
@@ -3194,7 +3310,7 @@ def run_paths(card, smi):
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
     runs_extra, telemetry = [], None
     if has_telemetry():
-        log(f"[11/12] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
+        log(f"[11/13] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
             "(before phase 7): deep-traced staged batches, their stage "
             "spans, the export against the catalog")
         counts11, telemetry = drive(lambda: telemetry_phase(
@@ -3202,9 +3318,9 @@ def run_paths(card, smi):
             "telemetry")
         runs_extra.append(counts11)
     else:
-        log("[11/12] telemetry: this checkout has no obs package")
+        log("[11/13] telemetry: this checkout has no obs package")
 
-    log(f"[7/12] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/13] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -3220,7 +3336,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/12] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/13] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -3236,7 +3352,7 @@ def run_paths(card, smi):
     compare_tiers(sv32, sv8, "compacted")
     frontend = {}
     if has_frontend():
-        log(f"[12/12] front end: a Frontend in this process on each tier's "
+        log(f"[12/13] front end: a Frontend in this process on each tier's "
             f"compacted tenant, {FE_STREAMS} connections x {FE_REQUESTS} "
             f"requests of {FE_ROWS} rows, NaN rows, embed, a wire-loaded "
             "l1-qmc tenant (ingest, compaction under queries, unload), "
@@ -3252,7 +3368,7 @@ def run_paths(card, smi):
         frontend["frontend drain"] = drain_leg(sv32, card, smi)
         log(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[12/12] front end: this checkout has no network front end")
+        log("[12/13] front end: this checkout has no network front end")
     keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
             "self_hit_rate")
     paths = {
@@ -3261,6 +3377,8 @@ def run_paths(card, smi):
         "int8": {"profile": prof8, **{k: report8[k] for k in keep},
                  "compaction": comp8}}
     runs = [counts, counts8, counts7, counts_c, counts_c8] + runs_extra
+    loop_rates = {t: r["query_rows"] / r["loop_s"] for t, r in
+                  (("fp32", report), ("int8", report8))}
     if telemetry is not None:
         paths["telemetry"] = telemetry
     paths.update(frontend)
@@ -3272,11 +3390,11 @@ def run_paths(card, smi):
         counts9, paths["tenants"] = tenants_phase(card, smi)
         runs += counts9
     else:
-        log("[9/12] tenants: this checkout serves l2-basis only")
+        log("[9/13] tenants: this checkout serves l2-basis only")
     gc.collect()
     torch.cuda.empty_cache()
     if hasattr(ServableRegistry, "recover"):
-        log(f"[10/12] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
+        log(f"[10/13] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
             f"a snapshot and a warm standby, then {DURABLE_STEPS} steps; "
             "kill -9 at wal.append and at compact.swap in children, each "
             "recovered in a fresh child; fp32 then int8")
@@ -3288,9 +3406,358 @@ def run_paths(card, smi):
             runs.append(c)
         log(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[10/12] durability: this checkout has no WAL")
+        log("[10/13] durability: this checkout has no WAL")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if has_sharding():
+        log(f"[13/13] sharded path ({smi}): repro_torch.launch.serve on "
+            f"a {SHARD_RANKS}-rank serve mesh over the card, l2-basis at "
+            f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, fp32 (auto "
+            "replication) then int8: answers unreplicated, static:2 routed "
+            "and all-active against unshard(), layouts, a profiled batch, "
+            "p50 beside unsharded; at fp32 a seal's placement diff, a "
+            "skewed stream and a compaction under auto, set_replication "
+            "and an update over the wire")
+        t0 = time.perf_counter()
+        counts13, sharded = sharded_phase(card, smi, loop_rates)
+        runs += counts13
+        paths.update(sharded)
+        log(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
+    else:
+        log("[13/13] sharded path: this checkout has no serve mesh")
     counts_all = {name: sum(c[name] for c in runs) for name in counts}
     return counts_all, paths
+
+
+# -- phase 13: multi-device serving ------------------------------------------
+
+
+SHARD_RANKS = 8
+SHARD_STREAM = 50          # 32-row batches timed sharded, then unsharded
+SHARD_HOT = 4              # sealed segments the skewed stream aims at
+
+
+def has_sharding() -> bool:
+    """Does this checkout serve over a serve mesh?"""
+    return (ROOT / "src" / "repro_torch" / "launch" / "mesh.py").is_file()
+
+
+def batch_answers(idx, probes):
+    """64 probes as two 32-row batches and 128 as one batch, through
+    ``idx.query``: [(gids, distance bits)] * 3."""
+    return [answer(idx, probes[:32]), answer(idx, probes[32:64]),
+            answer(idx, probes[:128])]
+
+
+def all_active_answers(idx, probes):
+    """:func:`batch_answers` with every replica answering: the sharded
+    query with no route plan (the fan-in drops the copies), rescored on a
+    quantized tier."""
+    import torch
+    from repro_torch.core import distributed
+    out = []
+    for b in (probes[:32], probes[32:64], probes[:128]):
+        q = torch.as_tensor(b, device=idx.device)
+        with idx._lock:
+            pl = idx._current_placement()
+            st = idx.delta.state
+            g, d = distributed.query_segments_sharded(
+                pl, (st.alpha, st.b, st.mix), idx.cfg, q,
+                idx._survivor_width(10, 4), n_probes=4)
+        if idx.precision != "fp32":
+            g, d = idx._rescore(q, g, 10)
+        out.append((g.cpu().numpy(), d.cpu().numpy().view(np.int32)))
+    return out
+
+
+def expect_layout(idx, n_dev, factor, what):
+    """``shard_layout()`` against the round-robin rule at ``factor``
+    replicas a sealed segment (the prediction: 257 sealed segments, per_dev
+    33 unreplicated and 65 at static:2 on 8 ranks)."""
+    lay = idx.shard_layout()
+    n = lay["n_sealed"]
+    want = (n_dev, -(-n * factor // n_dev), n * factor)
+    got = (lay["n_dev"], lay["per_dev"], lay["n_instances"])
+    if got != want or n != MAIN_ITEMS // 1024 + 1:
+        raise AssertionError(f"sharded ({what}): layout n_dev, per_dev, "
+                             f"n_instances {got} for {n} sealed, want {want}"
+                             f" for {MAIN_ITEMS // 1024 + 1}")
+    return {"n_dev": got[0], "per_dev": got[1], "n_instances": got[2],
+            "n_sealed": n}
+
+
+def sharded_answers_leg(sv, mesh, tier):
+    """The 64 + 128 probes through the sharded tenant unreplicated, at
+    static:2 routed (three rounds, so the router turns over the replicas)
+    and at static:2 with every replica answering, each bit-equal to the
+    same index after ``unshard()``; the layouts as predicted.  Leaves the
+    tenant sharded afresh (stripe width = need), unreplicated."""
+    idx = sv.index
+    probes = sv.embed(probe_inputs(sv, np.random.default_rng(1300), 128)
+                      ).cpu().numpy()
+    idx.unshard()
+    want = batch_answers(idx, probes)
+    idx.shard(mesh)
+    res = {"unreplicated": expect_layout(idx, len(mesh.devices), 1, tier)}
+    got = {"unreplicated": batch_answers(idx, probes)}
+    sv.maintenance.set_replication(2)
+    res["static:2"] = expect_layout(idx, len(mesh.devices), 2, tier)
+    for r in range(3):
+        got[f"static:2 routed, round {r}"] = batch_answers(idx, probes)
+    got["static:2 all-active"] = all_active_answers(idx, probes)
+    bad = [k for k, v in got.items()
+           if not all(same(a, b) for a, b in zip(v, want))]
+    if bad:
+        raise AssertionError(f"sharded ({tier}): {bad} differ from the "
+                             "unsharded answer")
+    sv.maintenance.set_replication(None)
+    idx.unshard()
+    idx.shard(mesh)
+    idx.refresh_placement()
+    res["placement_per_dev"] = idx._placement.per_dev
+    res["checked"] = sorted(got)
+    return res
+
+
+def seal_diff_leg(sv, tier):
+    """Fill the delta to one segment, seal it through the maintenance
+    handle (which refreshes the placement): the placement diff must move
+    at most two segments' bytes, against the restack counter's whole
+    stack."""
+    from repro_torch.launch.serve import sample_inputs
+    from repro_torch.obs import metrics as obs_metrics
+    idx, m = sv.index, obs_metrics.registry()
+    names = ("placement_replaced_bytes_total",
+             "placement_restack_bytes_total")
+    before = [m.value(n, tenant=idx.tenant) or 0 for n in names]
+    room = idx.delta.capacity - idx.delta.n_items
+    x, _ = sample_inputs(sv, np.random.default_rng(1301), room)
+    sv.insert(sv.embed(x))
+    sv.maintenance.seal()
+    pl = idx._placement
+    moved, restack = [(m.value(n, tenant=idx.tenant) or 0) - b
+                      for n, b in zip(names, before)]
+    seg = idx.segments[-2]
+    one = (seg.state.table.nbytes + seg.state.db.nbytes + seg.gids.nbytes
+           + seg.live.nbytes)
+    if not (pl.diffed and 0 < moved <= 2 * one and restack == pl.sealed_bytes
+            and moved < restack):
+        raise AssertionError(f"sharded ({tier}): a seal moved {moved} bytes "
+                             f"(one segment {one}), restack {restack}, "
+                             f"stack {pl.sealed_bytes}, diffed {pl.diffed}")
+    return {"replaced_bytes": moved, "one_segment_bytes": one,
+            "restack_bytes": restack, "n_sealed": pl.n_sealed}
+
+
+def hot_queries(idx, n_rows=256):
+    """``n_rows`` query rows near live items of the first ``SHARD_HOT``
+    sealed segments (fp32 rows, a small perturbation): a skewed stream."""
+    import torch
+    rows = []
+    for seg in idx.segments[:SHARD_HOT]:
+        live = seg.live[:seg.n_items]
+        rows.append(seg.state.db[:seg.n_items][live].float())
+    emb = torch.cat(rows).cpu().numpy()
+    pick = np.random.default_rng(1302).choice(emb.shape[0], n_rows,
+                                              replace=False)
+    return emb[pick] + np.float32(0.01)
+
+
+def skewed_stream(sv, q):
+    """The skewed rows through the batcher, 32 a request (the telemetry
+    path); returns ``shard_balance()``."""
+    for s in range(0, q.shape[0], 32):
+        sv.query(q[s:s + 32], 10, 4)
+    return sv.stats.shard_balance()
+
+
+def auto_compaction_leg(reg, sv, tier):
+    """Under ``replication="auto"``: a skewed stream (unrouted), 35% of
+    the items deleted and the delta sealed, then a ``MaintenancePool``
+    worker compacts while this thread streams 32-row batches (each answer
+    equal to the one before or after the job); the factors the compaction
+    set must exceed 1 on the hot segments; a routed skewed stream after;
+    the tenant's answers equal to its unsharded ones."""
+    from repro_torch.launch.serve import sample_fvals
+    from repro_torch.serve import MaintenancePool
+    idx = sv.index
+    hot = hot_queries(idx)
+    sv.stats.reset_fanout()
+    unrouted = skewed_stream(sv, hot)
+    sv.delete(pick_victims(sv))
+    sv.maintenance.seal()
+    probes = sv.embed(sample_fvals(np.random.default_rng(1303), sv.nodes(),
+                                   128)).cpu().numpy()
+    batches = [probes[:32], probes[32:64]]
+    pre = [answer(idx, b) for b in batches]
+    during = []
+    t0 = time.perf_counter()
+    pool = MaintenancePool(reg, workers=1)
+    try:
+        job = pool.submit("l2-basis", "compact")
+        while pool.status(job)["status"] in ("queued", "running"):
+            during.append(answer(idx, batches[len(during) % 2]))
+        st = pool.wait(job, timeout_s=600.0)
+    finally:
+        pool.stop(timeout_s=600.0)
+    job_s = time.perf_counter() - t0
+    if st["status"] != "done":
+        raise AssertionError(f"sharded compaction ({tier}) failed: "
+                             f"{st['error']}\n{st['traceback']}")
+    post = [answer(idx, b) for b in batches]
+    torn = [i for i, a in enumerate(during)
+            if not (same(a, pre[i % 2]) or same(a, post[i % 2]))]
+    if torn:
+        raise AssertionError(f"sharded compaction ({tier}): {len(torn)} of "
+                             f"{len(during)} answers torn")
+    fac = idx.replication()
+    if not (isinstance(fac, tuple) and max(fac[:SHARD_HOT]) > 1):
+        raise AssertionError(f"auto ({tier}): factors {fac} after a skewed "
+                             "stream")
+    routed = skewed_stream(sv, hot)
+    got = batch_answers(idx, probes)
+    idx.unshard()
+    want = batch_answers(idx, probes)
+    idx.shard(reg.mesh)
+    if not all(same(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"auto ({tier}): replicated answers after the "
+                             "compaction differ from the unsharded ones")
+    lay = idx.shard_layout()
+    return {"job_s": job_s, "answers_during": len(during), "torn": 0,
+            "segments_after": len(idx.segments),
+            "factors_hot": list(fac[:SHARD_HOT]),
+            "factors_gt1": sum(f > 1 for f in fac),
+            "n_instances": lay["n_instances"], "n_sealed": lay["n_sealed"],
+            "device_imbalance_unrouted": unrouted["device_imbalance"],
+            "device_imbalance_routed": routed["device_imbalance"],
+            "device_load_imbalance_routed": routed["device_load_imbalance"],
+            "per_device_load_routed": routed["per_device_load"]}
+
+
+def wire_replication_leg(reg, sv, tier):
+    """A ``maintenance`` frame of kind ``set_replication`` and an
+    ``update`` of ``replication`` over the wire re-place the sharded
+    tenant; 12-row wire answers bit-equal to the direct sharded call
+    before and after each."""
+    import dataclasses
+    from repro_torch.serve import BackgroundServer
+    idx = sv.index
+    q = sv.embed(probe_inputs(sv, np.random.default_rng(1304), 12)
+                 ).cpu().numpy()
+    srv = BackgroundServer(reg)
+    res = {}
+    try:
+        with srv.client() as c:
+            def check(what):
+                wire = bits_of(*c.query_arrays("l2-basis", q, k=FE_K,
+                                               n_probes=FE_PROBES))
+                if not same(wire, answer(idx, q)):
+                    raise AssertionError(f"sharded wire ({tier}): {what}: "
+                                         "the wire answer differs")
+            check("before")
+            job = c.maintenance("l2-basis", "set_replication",
+                                replication=2)
+            c.wait_job(job, timeout_s=600.0)
+            lay = idx.shard_layout()
+            if lay["n_instances"] != 2 * lay["n_sealed"]:
+                raise AssertionError(f"sharded wire ({tier}): layout {lay}")
+            res["set_replication"] = lay["n_instances"]
+            check("after set_replication")
+            r = c.update(dict(dataclasses.asdict(sv.spec),
+                              replication="static:3"))
+            lay = idx.shard_layout()
+            if r["changed"] != ["replication"] or \
+                    lay["n_instances"] != 3 * lay["n_sealed"]:
+                raise AssertionError(f"sharded wire ({tier}): update {r}, "
+                                     f"layout {lay}")
+            res["update"] = lay["n_instances"]
+            check("after the update")
+    finally:
+        srv.stop()
+    return res
+
+
+def shard_numbers(sv, mesh, tier):
+    """p50 and rate of 32-row batches sharded, then the same index
+    unsharded (re-sharded after), and card bytes of each rank's block."""
+    rng = np.random.default_rng(1305)
+    idx = sv.index
+    probes = sv.embed(probe_inputs(sv, rng, 64)).cpu().numpy()
+    batches = [probes[:32], probes[32:]]
+    _, sh = stream_batches(idx, batches, SHARD_STREAM)
+    idx.unshard()
+    _, un = stream_batches(idx, batches, SHARD_STREAM)
+    idx.shard(mesh)
+    idx.refresh_placement()
+    return {"sharded": batch_rate(sh), "unsharded": batch_rate(un),
+            "rank_bytes": idx._placement.nbytes(),
+            "stack_bytes": idx.layout()["bytes"]}
+
+
+def sharded_phase(card, smi, loop_rates):
+    """Phase 13 (see the module docstring): l2-basis through
+    ``launch.serve.run`` on an 8-rank serve mesh over the card, fp32
+    (``replicate="auto"``) then int8; returns (launch counts per tier,
+    the numbers)."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve import ServableRegistry
+    tag = f"[{card}, {smi.split(',')[-1].strip()}]"
+    runs, out = [], {}
+    for tier, path, replicate in (("fp32", FP32_PATH, "auto"),
+                                  ("int8", INT8_PATH, "none")):
+        t0 = time.perf_counter()
+        mesh = make_serve_mesh(SHARD_RANKS, device="cuda")
+        reg = ServableRegistry(device="cuda", mesh=mesh)
+        res = {"tier": tier, "card": smi,
+               "mesh": [str(d) for d in mesh.devices]}
+
+        def leg():
+            torch.cuda.reset_peak_memory_stats()
+            rep = serve_run(("l2-basis",), registry=reg, n_items=MAIN_ITEMS,
+                            steps=MAIN_STEPS, precision=tier,
+                            replicate=replicate, log=log)["l2-basis"]
+            sv = reg.get("l2-basis")
+            check_report(rep, f"sharded {tier}")
+            res["loop_rate_rows_per_s"] = rep["query_rows"] / rep["loop_s"]
+            res["loop_rate_unsharded_rows_per_s"] = loop_rates.get(tier)
+            res["qps"], res["p50_ms"] = rep["qps"], rep["p50_ms"]
+            res["answers"] = sharded_answers_leg(sv, mesh, tier)
+            prof = profile_batches(sv)
+            per = prof["launches_per_batch"]
+            want = {"hash_mm": 1, "scorer": SHARD_RANKS + 1,
+                    "merge": SHARD_RANKS + 2 + (tier != "fp32")}
+            got = {"hash_mm": per["hash_mm"],
+                   "scorer": per["fused_query"] + per["quantized_query"],
+                   "merge": per["merge"]}
+            if got != want:
+                raise AssertionError(f"sharded ({tier}): launches per "
+                                     f"profiled batch {per}, want {want}")
+            res["profile"] = {k: prof[k] for k in (
+                "wall_ms", "kernel_ms", "kernels_per_batch",
+                "launches_per_batch", "busy_share", "scorer_ms_per_batch",
+                "merge_rerank_ms_per_batch")}
+            res["numbers"] = shard_numbers(sv, mesh, tier)
+            if tier == "fp32":
+                res["seal_diff"] = seal_diff_leg(sv, tier)
+                res["auto"] = auto_compaction_leg(reg, sv, tier)
+                res["wire"] = wire_replication_leg(reg, sv, tier)
+            torch.cuda.synchronize()
+            res["peak_memory"] = torch.cuda.max_memory_allocated()
+            res["memory"] = torch.cuda.memory_allocated()
+            return res
+        counts, _ = drive(leg, card, smi, path, f"sharded path ({tier})")
+        runs.append(counts)
+        res["launches"] = counts
+        res["wall_s"] = time.perf_counter() - t0
+        log(f"  {tag} sharded " + json.dumps(res))
+        out[f"sharded {tier}"] = res
+        del reg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs, out
 
 
 # -- phase 9: the l1-qmc and w2-quantile tenants -----------------------------
@@ -3350,7 +3817,7 @@ def tenants_phase(card, smi):
     from repro_torch.launch import w2_gate
     from repro_torch.serve import ServableRegistry
     names = ("l1-qmc", "w2-quantile")
-    log(f"[9/12] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+    log(f"[9/13] tenants: repro_torch.launch.serve, {', '.join(names)}, "
         f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
         "int8")
     params = {"mu": np.zeros(0), "sig": np.zeros(0)}
@@ -3724,11 +4191,12 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2 and 6-12 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-13 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
                     "the telemetry, the compactions, the front end, the "
                     "l1-qmc and "
-                    "w2-quantile tenants and durability, then one JSON "
+                    "w2-quantile tenants, durability and the sharded path, "
+                    "then one JSON "
                     "line of profiles and reports; to profile another "
                     "checkout, copy this script to its root")
     ap.add_argument("--durable-child", default=None, help=argparse.SUPPRESS)
@@ -3751,14 +4219,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/12] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/13] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/12] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/13] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -3772,17 +4240,17 @@ def main(argv=None) -> int:
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/12] CPU (plain versions) vs card (kernels) parity")
+        log("[4/13] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
         k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
-        log(f"[5/12] timings, {smi}")
+        log(f"[5/13] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/12] kernel checks against the plain versions on the card: "
+    log("[3/13] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
         "saturated / infinite / NaN projections bit-equal, and with a "
@@ -3842,6 +4310,9 @@ def main(argv=None) -> int:
     gen15 = torch.Generator().manual_seed(15)
     check_merge(gen15, 3, 300, n_out=200)       # the network past n_out 128
     check_merge_select(gen15)
+    from repro_torch.kernels import ops as kops
+    if hasattr(kops, "merge_topk_unique"):   # absent in older checkouts
+        check_merge_unique(torch.Generator().manual_seed(25))
     i8, bf = torch.int8, torch.bfloat16
     errs["quantized_query"] = max(
         check_quantized_query(gen, 128, 1024, 1024, 40, i8, p=p)
@@ -3904,7 +4375,7 @@ def main(argv=None) -> int:
     check_nan_queries()
     check_query_batched()
 
-    log("[4/12] CPU (plain versions) vs card (kernels) parity")
+    log("[4/13] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
     k2_p1_inputs = None
@@ -3912,7 +4383,7 @@ def main(argv=None) -> int:
         k2_p1_inputs = parity_run("l1-qmc")
         parity_run("w2-quantile")
 
-    log("[5/12] timings (median of CUDA events over "
+    log("[5/13] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn, k2_p1_inputs)

@@ -49,8 +49,9 @@ def dct_mm(fvals: torch.Tensor, dct_t: torch.Tensor, scale: torch.Tensor
     pf, pm, ps = fvals.data_ptr(), dct_t.data_ptr(), scale.data_ptr()
     plan = _plan(m, n, d, (pf | pm | ps) % 16 == 0)
     lib, fn = _launcher()
-    code = fn(pf, pm, ps, m, n, d, plan.rows, plan.vec, out.data_ptr(),
-              dispatch.stream_handle(fvals))
-    _build.check(lib, "dct_mm", code)
+    with dispatch.on_device(fvals):
+        code = fn(pf, pm, ps, m, n, d, plan.rows, plan.vec, out.data_ptr(),
+                  dispatch.stream_handle(fvals))
+        _build.check(lib, "dct_mm", code)
     dispatch.count_launch("dct_mm")
     return out

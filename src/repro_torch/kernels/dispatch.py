@@ -18,10 +18,16 @@ and nowhere else -- so a run can show which kernels its main path went
 through.  The count is taken under a lock: a maintenance worker and the
 query thread launch kernels at once, and ``+= 1`` on a ``Counter`` is a
 read-modify-write that threads can interleave.
+
+A kernel launches on the calling thread's current CUDA device, so every
+wrapper makes its launch inside :func:`on_device` of its input: on a
+machine with several cards a sharded index keeps tensors on cards other
+than the current one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from collections import Counter
@@ -35,6 +41,8 @@ KERNELS = ("hash_mm", "dct_mm", "fused_query", "merge", "quantized_query",
 STORE_DTYPES = ("fp32", "bf16", "int8")
 
 _ENV_STORE = "REPRO_STORE_DTYPE"
+
+_SAME_DEVICE = contextlib.nullcontext()
 
 launches: Counter = Counter({name: 0 for name in KERNELS})
 _launches_lock = threading.Lock()
@@ -112,6 +120,21 @@ def check_cuda_args(op: str, *tensors: torch.Tensor,
         if i < len(dtypes) and t.dtype != dtypes[i]:
             raise TypeError(f"{op}: argument {i} is {t.dtype}, "
                             f"want {dtypes[i]}")
+
+
+def on_device(t: torch.Tensor):
+    """The context a ctypes launch on ``t`` runs in.  A kernel launches on
+    the calling thread's current CUDA device, whatever stream it is handed,
+    and ``allow_dynamic_smem_once`` (``csrc/common.cuh``) keys its opt-in on
+    that device too; so a tensor on another card is launched under
+    ``torch.cuda.device(t.device)``.  On the current device (every launch on
+    a one-card machine) it is a no-op context, and the launch pays two
+    device-index reads (the raw ones, as :func:`stream_handle` reads the
+    stream: ``t`` is on a card, so CUDA is initialised)."""
+    idx = t.get_device()
+    if idx == torch._C._cuda_getDevice():
+        return _SAME_DEVICE
+    return torch.cuda.device(idx)
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -117,10 +117,12 @@ def fused_query_topk(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
         return out_d, out_i
     plan = _plan(nq, c, n, 4, aligned=db.data_ptr() % 16 == 0)
     lib, fn = _launcher()
-    code = fn(q.data_ptr(), db.data_ptr(), ids.data_ptr(), nq, n, c, k, valid,
-              pmode, float(p), plan.cluster, plan.slots,
-              plan.lanes.bit_length() - 1, int(plan.vec), out_d.data_ptr(),
-              out_i.data_ptr(), dispatch.stream_handle(q))
-    _build.check(lib, "fused_query", code)
+    with dispatch.on_device(q):
+        code = fn(q.data_ptr(), db.data_ptr(), ids.data_ptr(), nq, n, c,
+                  k, valid, pmode, float(p), plan.cluster, plan.slots,
+                  plan.lanes.bit_length() - 1, int(plan.vec),
+                  out_d.data_ptr(), out_i.data_ptr(),
+                  dispatch.stream_handle(q))
+        _build.check(lib, "fused_query", code)
     dispatch.count_launch("fused_query")
     return out_d, out_i

@@ -50,8 +50,9 @@ def hash_mm(x: torch.Tensor, alpha: torch.Tensor, b: torch.Tensor, r: float
     px, pa, pb = x.data_ptr(), alpha.data_ptr(), b.data_ptr()
     plan = _plan(m, n, k, (px | pa | pb) % 16 == 0)
     lib, fn = _launcher()
-    code = fn(px, pa, pb, float(r), m, n, k, plan.rows, plan.vec,
-              h.data_ptr(), proj.data_ptr(), dispatch.stream_handle(x))
-    _build.check(lib, "hash_mm", code)
+    with dispatch.on_device(x):
+        code = fn(px, pa, pb, float(r), m, n, k, plan.rows, plan.vec,
+                  h.data_ptr(), proj.data_ptr(), dispatch.stream_handle(x))
+        _build.check(lib, "hash_mm", code)
     dispatch.count_launch("hash_mm")
     return h, proj

@@ -121,10 +121,11 @@ def _select(d: torch.Tensor, i: torch.Tensor, n_out: int, mask_invalid: bool
     pd, pi = d.data_ptr(), i.data_ptr()
     pl = plan(rows, m, pd % 16 == pi % 16)
     lib, _, fn = _launcher()
-    code = fn(pd, pi, rows, m, n_out, pl.cluster, pl.share, pl.tile,
-              int(pl.vec), int(mask_invalid), d_out.data_ptr(),
-              i_out.data_ptr(), dispatch.stream_handle(d))
-    _build.check(lib, "merge", code)
+    with dispatch.on_device(d):
+        code = fn(pd, pi, rows, m, n_out, pl.cluster, pl.share, pl.tile,
+                  int(pl.vec), int(mask_invalid), d_out.data_ptr(),
+                  i_out.data_ptr(), dispatch.stream_handle(d))
+        _build.check(lib, "merge", code)
     dispatch.count_launch("merge")
     return d_out, i_out
 
@@ -166,9 +167,11 @@ def sort_pairs_kernel(d: torch.Tensor, i: torch.Tensor, sorted_run: int = 1,
     if rows == 0:
         return d_out, i_out
     lib, fn, _ = _launcher()
-    code = fn(d.data_ptr(), i.data_ptr(), rows, m, pw, sorted_run, n_out,
-              d_out.data_ptr(), i_out.data_ptr(), dispatch.stream_handle(d))
-    _build.check(lib, "merge", code)
+    with dispatch.on_device(d):
+        code = fn(d.data_ptr(), i.data_ptr(), rows, m, pw, sorted_run,
+                  n_out, d_out.data_ptr(), i_out.data_ptr(),
+                  dispatch.stream_handle(d))
+        _build.check(lib, "merge", code)
     dispatch.count_launch("merge")
     return d_out, i_out
 

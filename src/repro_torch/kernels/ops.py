@@ -16,7 +16,7 @@ from . import dispatch, ref
 from .dct_mm import dct_mm
 from .fused_query import fused_query_topk as _fused_query_kernel
 from .hash_mm import hash_mm
-from .merge import merge_topk_kernel
+from .merge import merge_topk_kernel, sort_pairs_kernel
 from .quantized_query import quantized_query_topk as _quantized_query_kernel
 from .rerank import rerank_distances
 from .simhash_pack import simhash_pack
@@ -132,3 +132,22 @@ def merge_topk(dists, ids, k: int):
     sd, si = ref.sort_pairs(d, ids)
     sd, si = sd[..., :k], si[..., :k]
     return sd, torch.where(torch.isinf(sd), -1, si)
+
+
+def merge_topk_unique(dists, ids, k: int):
+    """:func:`merge_topk` that also drops repeated ids: the fan-in of the
+    replicated sharded query, where a segment held by several ranks may
+    answer once per replica with bit-equal (distance, gid) pairs; keeping
+    the first makes the merged top k the unreplicated path's.  On rows
+    without a repeated id it is bit for bit :func:`merge_topk` (the dedup
+    masks nothing and the second sort changes no order).  On the card two
+    K3 launches: the full sort of the row (``sort_pairs_kernel``), the
+    dedup mask in torch ops (the JAX package computes it outside its
+    kernel too), then ``merge_topk_kernel`` for the first k."""
+    dists, ids = _pad_to_k(dists, ids, k)
+    if dispatch.use_kernel(dists):
+        ids = ids.to(torch.int32).contiguous()
+        d = torch.where(ids < 0, torch.inf, dists).contiguous()
+        sd, si = ref.drop_adjacent_duplicates(*sort_pairs_kernel(d, ids))
+        return merge_topk_kernel(sd.contiguous(), si.contiguous(), k)
+    return ref.merge_topk_unique_ref(dists, ids, k)

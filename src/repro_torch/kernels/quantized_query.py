@@ -74,11 +74,14 @@ def quantized_query_topk(q: torch.Tensor, codes: torch.Tensor,
     plan = _plan(nq, c, n, codes.element_size(),
                  aligned=codes.data_ptr() % 16 == 0)
     lib, fn = _launcher()
-    code = fn(q.data_ptr(), codes.data_ptr(), int(codes.dtype == torch.int8),
-              scale.data_ptr(), rows_per_scale, ids.data_ptr(), nq, n, c, k,
-              valid, pmode, float(p), plan.cluster, plan.slots,
-              plan.lanes.bit_length() - 1, int(plan.vec), out_d.data_ptr(),
-              out_i.data_ptr(), dispatch.stream_handle(q))
-    _build.check(lib, "quantized_query", code)
+    with dispatch.on_device(q):
+        code = fn(q.data_ptr(), codes.data_ptr(),
+                  int(codes.dtype == torch.int8), scale.data_ptr(),
+                  rows_per_scale, ids.data_ptr(), nq, n, c, k, valid, pmode,
+                  float(p), plan.cluster, plan.slots,
+                  plan.lanes.bit_length() - 1, int(plan.vec),
+                  out_d.data_ptr(), out_i.data_ptr(),
+                  dispatch.stream_handle(q))
+        _build.check(lib, "quantized_query", code)
     dispatch.count_launch("quantized_query")
     return out_d, out_i

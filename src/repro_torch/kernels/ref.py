@@ -258,3 +258,27 @@ def sort_pairs(d: torch.Tensor, i: torch.Tensor, sorted_run: int = 1
     dp, ip, m = _pad_pow2(d.float(), i.to(torch.int32))
     ds, is_ = _network(dp, ip, sorted_run=sorted_run)
     return ds[..., :m], is_[..., :m]
+
+
+def drop_adjacent_duplicates(sd: torch.Tensor, si: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """On rows sorted by (distance, id): every pair whose id >= 0 repeats
+    the id just before it becomes (+inf, -1).  Replicas of one segment
+    return bit-equal (distance, gid) pairs, so after the sort they sit side
+    by side and the first is kept."""
+    dup = torch.zeros_like(si, dtype=torch.bool)
+    dup[..., 1:] = (si[..., 1:] == si[..., :-1]) & (si[..., 1:] >= 0)
+    return torch.where(dup, torch.inf, sd), torch.where(dup, -1, si)
+
+
+def merge_topk_unique_ref(dists: torch.Tensor, ids: torch.Tensor, k: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ops.merge_topk_unique`` in plain ops, on rows of M >= k pairs: a
+    full (distance, id) sort with ids < 0 read as +inf, the adjacent
+    duplicates dropped, a second sort, the first k, and -1 beside every
+    +inf (``repro/kernels/ops.py`` ``_merge_topk_unique_impl``)."""
+    d = torch.where(ids < 0, torch.inf, dists).contiguous()
+    sd, si = sort_pairs(d, ids.to(torch.int32).contiguous())
+    sd, si = sort_pairs(*drop_adjacent_duplicates(sd, si))
+    sd, si = sd[..., :k], si[..., :k]
+    return sd, torch.where(torch.isinf(sd), -1, si)

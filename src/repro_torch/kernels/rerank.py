@@ -89,9 +89,10 @@ def rerank_distances(q: torch.Tensor, emb: torch.Tensor, ids: torch.Tensor,
     pq, pe = q.data_ptr(), emb.data_ptr()
     pl = plan(b, n, (pq | pe) % 16 == 0)
     lib, fn = _launcher()
-    code = fn(pq, pe, ids.data_ptr(), b, c, n, pmode, float(p), pl.rows,
-              pl.lanes.bit_length() - 1, int(pl.vec), out.data_ptr(),
-              dispatch.stream_handle(q))
-    _build.check(lib, "rerank", code)
+    with dispatch.on_device(q):
+        code = fn(pq, pe, ids.data_ptr(), b, c, n, pmode, float(p), pl.rows,
+                  pl.lanes.bit_length() - 1, int(pl.vec), out.data_ptr(),
+                  dispatch.stream_handle(q))
+        _build.check(lib, "rerank", code)
     dispatch.count_launch("rerank")
     return out

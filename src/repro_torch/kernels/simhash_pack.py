@@ -68,8 +68,9 @@ def simhash_pack(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     px, pa = x.data_ptr(), alpha.data_ptr()
     pl = plan(m, n, k, (px | pa) % 16 == 0)
     lib, fn = _launcher()
-    code = fn(px, pa, m, n, k, pl.words, int(pl.vec), sig.data_ptr(),
-              dispatch.stream_handle(x))
-    _build.check(lib, "simhash_pack", code)
+    with dispatch.on_device(x):
+        code = fn(px, pa, m, n, k, pl.words, int(pl.vec), sig.data_ptr(),
+                  dispatch.stream_handle(x))
+        _build.check(lib, "simhash_pack", code)
     dispatch.count_launch("simhash_pack")
     return sig

@@ -13,6 +13,9 @@
     python -m repro_torch.launch.serve --device cpu --metrics-dir M \
         --trace-sample 1.0 --trace-deep                     # telemetry
     python -m repro_torch.launch.serve --listen 127.0.0.1:0 # network server
+    python -m repro_torch.launch.serve --shard 8 --replicate static:2
+    python -m repro_torch.launch.serve --device cpu --shard 4 \
+        --replicate static:2 --n-items 4096 --steps 4        # 4 CPU ranks
 
 The port of the scripted demo loop of ``repro/launch/serve.py``.  It
 serves the JAX demo's tenants (``default_specs``): ``l2-basis`` (p = 2,
@@ -47,7 +50,17 @@ snapshot plus the WAL tail) and prints each tenant's recovery report; a
 restored tenant is served as it was restored.  ``--standby WAL_DIR`` runs
 a warm standby instead: it tails a primary's WAL directory until SIGTERM
 (or SIGINT), then promotes and prints the failover report.  Logs and
-snapshots are the JAX package's format.  Sharding is not ported yet.
+snapshots are the JAX package's format.
+
+Sharding, with the JAX launcher's meanings: ``--shard N`` serves every
+tenant over a serve mesh of N ranks (``launch.mesh.make_serve_mesh``: one
+process drives them all; the ranks follow ``--device``, so on one card all
+N share it and on the CPU all are ``cpu``), a restored or recovered tenant
+included, and ``--replicate none|static:k|auto`` is the tenants'
+hot-segment replication (``auto`` re-places from the live
+``shard_balance`` at each compaction).  Each tenant's report line then
+gives ``shards=NxP replicas=I/S`` (ranks x instances a rank, instances /
+sealed segments) and its ``shard_balance``.
 
 Telemetry, with the JAX launcher's meanings: ``--metrics-dir DIR``
 exports the metrics registry and the drained trace spans every loop step
@@ -86,19 +99,22 @@ import torch
 from ..kernels import dispatch
 from ..obs import Exporter, configure as obs_configure
 from ..serve import ServableRegistry, ServableSpec, recall_proxy, run_server
+from .mesh import make_serve_mesh
 
 TENANTS = ("l2-basis", "l1-qmc", "w2-quantile")
 W2_DRAWS = 256          # raw draws per distribution the W^2 tenant ingests
 
 
 def default_specs(n_dims: int = 64, segment_capacity: int = 1024,
-                  max_delay_ms: float = 2.0, precision: str = "fp32"
-                  ) -> tuple:
-    """The demo's three tenants (JAX ``launch/serve.py:80-87``) at a
-    storage tier, in :data:`TENANTS` order."""
+                  max_delay_ms: float = 2.0, precision: str = "fp32",
+                  shard_axis=None, replicate: str = "none") -> tuple:
+    """The demo's three tenants (JAX ``launch/serve.py:66-87``) at a
+    storage tier, sharded over ``shard_axis`` (None: not) with the
+    ``replicate`` policy, in :data:`TENANTS` order."""
     common = dict(n_dims=n_dims, segment_capacity=segment_capacity,
                   chunk_sizes=(8, 32, 128), max_delay_ms=max_delay_ms,
-                  precision=precision)
+                  precision=precision, shard_axis=shard_axis,
+                  replication=replicate)
     return (ServableSpec(name="l2-basis", p=2.0, r=4.0, embedder="basis",
                          **common),
             ServableSpec(name="l1-qmc", p=1.0, r=8.0, embedder="qmc",
@@ -188,7 +204,8 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
         segment_capacity: int = 1024, recall_probe_size: int = 64,
         self_hit_probes: int = 64, fill_batch: int = 8192, seed: int = 0,
         precision: str = "fp32", max_delay_ms: float = 2.0, registry=None,
-        on_insert=None, exporter=None, log=print) -> dict:
+        replicate: str = "none", on_insert=None, exporter=None,
+        log=print) -> dict:
     """Fill, run the demo loop, and return the report: one entry per
     tenant, by name, as ``registry.report()`` gives.  ``tenants`` names
     some of :data:`TENANTS` (None: all three).  The tenants are registered
@@ -197,7 +214,8 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
     ``on_insert(name, gids, params)``, when given, sees every insert: the
     gids and, for the Wasserstein tenant, the Gaussians' (mu, sigma).
     ``exporter`` (an ``obs.Exporter``), when given, is flushed after every
-    loop step."""
+    loop step.  A registry with a serve mesh shards the tenants it
+    registers here over it, with the ``replicate`` policy."""
     names = TENANTS if tenants is None else tuple(tenants)
     unknown = sorted(set(names) - set(TENANTS))
     if unknown:
@@ -208,7 +226,9 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
         torch.cuda.reset_peak_memory_stats(dev)
     specs = {sp.name: sp for sp in default_specs(
         n_dims, segment_capacity, max_delay_ms=max_delay_ms,
-        precision=precision)}
+        precision=precision,
+        shard_axis=None if registry.mesh is None else "serve",
+        replicate=replicate)}
     svs, rngs = {}, {}
     for name in sorted(names):
         # a tenant the registry already holds (restored) is served as is
@@ -315,6 +335,8 @@ def run(*, device=None, tenants=None, n_items: int = 0, steps: int = 20,
             "compactions": compactions[name],
             "bucket_overflow_frac": rep["occupancy"]["bucket_overflow_frac"],
             "unique_shapes": rep["batcher"]["unique_shapes"],
+            "shard_layout": rep["shard_layout"],
+            "shard_balance": stats["shard_balance"],
             # the run's, over every tenant
             "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else None),
@@ -379,6 +401,13 @@ def main(argv=None) -> dict:
                          "$REPRO_TRACE_DEEP)")
     ap.add_argument("--max-delay-ms", type=float, default=2.0,
                     help="micro-batcher flush deadline per tenant")
+    ap.add_argument("--shard", type=int, default=0,
+                    help="serve every tenant over a mesh of this many "
+                         "ranks on --device (0: unsharded)")
+    ap.add_argument("--replicate", default="none",
+                    help="hot-segment replication of sharded tenants: "
+                         "none | static:k | auto (re-placed from the live "
+                         "shard_balance at each compaction)")
     ap.add_argument("--listen", default=None, metavar="HOST:PORT",
                     help="serve live traffic instead of the demo loop: "
                          "bind the network front-end here (port 0 picks a "
@@ -404,13 +433,18 @@ def main(argv=None) -> dict:
     if args.trace_sample is not None or args.trace_deep:
         obs_configure(sample_rate=args.trace_sample,
                       deep=True if args.trace_deep else None)
+    mesh = (make_serve_mesh(args.shard, device=args.device) if args.shard
+            else None)
     if args.standby:
         return standby(args.standby, device=args.device,
-                       fsync_every=args.fsync_every)
+                       fsync_every=args.fsync_every, mesh=mesh)
     exporter = (Exporter.for_directory(args.metrics_dir)
                 if args.metrics_dir else None)
-    registry = ServableRegistry(device=args.device, wal_dir=args.wal_dir,
+    registry = ServableRegistry(device=args.device, mesh=mesh,
+                                wal_dir=args.wal_dir,
                                 fsync_every=args.fsync_every)
+    if mesh is not None:
+        print(f"[serve] serve mesh: {mesh.describe()}")
     if args.restore and args.wal_dir:
         reports = registry.recover(ckpt_root=args.restore,
                                    wal_dir=args.wal_dir)
@@ -423,6 +457,11 @@ def main(argv=None) -> dict:
     elif args.restore:
         print(f"[serve] restored tenants {registry.restore(args.restore)} "
               f"from {args.restore}")
+    if args.restore and mesh is not None:
+        # the command line's mesh wins over the snapshot's: a tenant
+        # snapshotted unsharded (or on another mesh) serves on this one
+        for name in registry.names():
+            registry.get(name).index.shard(mesh, "serve")
     if args.listen:
         return listen(args, registry, exporter)
     report = run(registry=registry,
@@ -436,7 +475,7 @@ def main(argv=None) -> dict:
                  n_dims=args.n_dims, segment_capacity=args.segment_capacity,
                  recall_probe_size=args.recall_probe_size, seed=args.seed,
                  precision=args.precision, max_delay_ms=args.max_delay_ms,
-                 exporter=exporter)
+                 replicate=args.replicate, exporter=exporter)
     if args.snapshot:
         registry.snapshot(args.snapshot, step=args.steps)
         print(f"[serve] snapshot -> {args.snapshot}")
@@ -451,12 +490,20 @@ def main(argv=None) -> dict:
             print(f"[serve] wal {name}: {s['offset']}B "
                   f"appends={s['appends']} fsyncs={s['syncs']}")
     for name, rep in report.items():
+        lay, bal = rep["shard_layout"], rep["shard_balance"]
+        shard_s = (f"shards={lay['n_dev']}x{lay['per_dev']} "
+                   f"replicas={lay['n_instances']}/{lay['n_sealed']}"
+                   if lay else "shards=off")
         print(f"[serve] {name}: live={rep['n_live']} "
               f"segments={rep['n_segments']} "
-              f"compactions={rep['compactions']} "
+              f"compactions={rep['compactions']} {shard_s} "
               f"recall@{rep['k']}={rep['recall_at_k']:.3f} "
               f"self_hit={rep['self_hit_rate']:.3f} qps={rep['qps']} "
-              f"p95={rep['p95_ms']}ms")
+              f"p95={rep['p95_ms']}ms "
+              f"shard_balance=" + json.dumps({
+                  key: bal[key] for key in (
+                      "device_imbalance", "device_load_imbalance",
+                      "per_device_wins", "per_device_load")}))
     print("[serve] report:", json.dumps(report))
     print("[serve] OK")
     return report
@@ -471,9 +518,11 @@ def listen(args, registry, exporter) -> dict:
         unknown = sorted(set(names) - set(TENANTS))
         if unknown:
             raise ValueError(f"unknown tenants {unknown}; have {TENANTS}")
-        for spec in default_specs(args.n_dims, args.segment_capacity,
-                                  max_delay_ms=args.max_delay_ms,
-                                  precision=args.precision):
+        for spec in default_specs(
+                args.n_dims, args.segment_capacity,
+                max_delay_ms=args.max_delay_ms, precision=args.precision,
+                shard_axis=None if registry.mesh is None else "serve",
+                replicate=args.replicate):
             if spec.name in names:
                 registry.register(spec)
         print(f"[serve] registered tenants {registry.names()}", flush=True)
@@ -495,14 +544,17 @@ def listen(args, registry, exporter) -> dict:
     return totals
 
 
-def standby(wal_dir: str, device=None, fsync_every=None) -> dict:
+def standby(wal_dir: str, device=None, fsync_every=None, mesh=None
+            ) -> dict:
     """Warm-standby mode: tail ``wal_dir`` until SIGTERM or SIGINT, then
-    promote; returns the promotion reports."""
+    promote; returns the promotion reports.  With a ``mesh`` the replayed
+    tenants whose spec names its axis are sharded over it."""
     from ..serve.standby import WalStandby
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
-    sb = WalStandby(wal_dir, device=device, fsync_every=fsync_every)
+    sb = WalStandby(wal_dir, device=device, mesh=mesh,
+                    fsync_every=fsync_every)
     sb.start()
     print(f"[serve] standby tailing {wal_dir}", flush=True)
     stop.wait()

@@ -1,6 +1,9 @@
-"""Streaming serve layer (port of repro/serve, single-device).
+"""Streaming serve layer (port of repro/serve).
 
-  segments    -- SegmentedIndex: delta / sealed segments, the stacked query
+  segments    -- SegmentedIndex: delta / sealed segments, the stacked query,
+                 shard(mesh) for the sharded one
+  router      -- QueryRouter / RoutePlan / auto_factors: which replica
+                 answers a micro-batch
   batcher     -- MicroBatcher: deadline-driven coalescing over a chunk
                  palette; a wall-clock pump thread (``start`` / ``stop``)
   stats       -- ServingStats, recall_proxy, occupancy and store reports
@@ -9,7 +12,7 @@
                  (``log_lifecycle`` / ``unregister``)
   wal         -- WriteAheadLog / read_wal: the JAX package's log format
   maintenance -- IndexMaintenance / ServableMaintenance / MaintenancePool:
-                 seal and compact off the query path
+                 seal, compact and set_replication off the query path
   standby     -- WalStandby: WAL-shipping warm standby
   faults      -- FaultPlan / InjectedFault: named crash points
   protocol    -- newline-delimited JSON frames and backpressure codes
@@ -18,9 +21,6 @@
                  ``launch/serve --listen`` runs it; BackgroundServer
                  serves it from a thread
   client      -- FrontendClient / wait_ready: the blocking client
-
-Not ported yet (multi-device serving): the router, placement across
-devices and ``set_replication``.
 """
 
 from .batcher import MicroBatcher
@@ -30,6 +30,7 @@ from .frontend import BackgroundServer, Frontend, RequestGate, run_server
 from .maintenance import (IndexMaintenance, MaintenanceJob, MaintenancePool,
                           ServableMaintenance)
 from .registry import Servable, ServableRegistry, ServableSpec
+from .router import QueryRouter, RoutePlan, auto_factors
 from .segments import Segment, SegmentedIndex
 from .standby import WalStandby
 from .stats import (ServingStats, occupancy_report, recall_proxy,
@@ -48,7 +49,9 @@ __all__ = [
     "MaintenanceJob",
     "MaintenancePool",
     "MicroBatcher",
+    "QueryRouter",
     "RequestGate",
+    "RoutePlan",
     "Segment",
     "SegmentedIndex",
     "Servable",
@@ -58,6 +61,7 @@ __all__ = [
     "ServingStats",
     "WalStandby",
     "WriteAheadLog",
+    "auto_factors",
     "occupancy_report",
     "read_wal",
     "recall_proxy",

@@ -64,10 +64,10 @@ traced (``tenant.load`` / ``tenant.unload`` / ``tenant.update`` spans);
 and a log ending in ``unloaded`` tells recovery the tenant left on
 purpose.  ``update`` rebuilds the batcher through
 ``Servable.make_batcher`` (the arguments ``Servable`` builds it with,
-segment-win telemetry included).  The JAX package's ``set_replication``
-branch of ``update`` has no counterpart on one device: the port's
-``ServableSpec`` refuses any replication but ``"none"``, and such an
-update answers ``bad_request``.
+segment-win telemetry included), and an update that changes
+``replication`` on a sharded tenant re-places it
+(``servable.maintenance.set_replication``: ``static:k`` sets k, ``none``
+sets 1 everywhere, ``auto`` waits for the next compaction).
 
 Invariant 9: **the network layer is invisible**.  A wire answer is
 bit-equal to the same call made directly, because the server adds no
@@ -730,6 +730,10 @@ class Frontend:
                 self._drain_tenant(sv, name)
                 sv.spec = spec
                 sv.batcher = sv.make_batcher(spec)
+                policy = spec.replication_policy()
+                if "replication" in changed and policy != "auto" \
+                        and sv.index.shard_layout() is not None:
+                    sv.maintenance.set_replication(policy)
                 self.registry.log_lifecycle(name, "updated")
                 sv.batcher.start()
             self.gate.set_state(name, READY)

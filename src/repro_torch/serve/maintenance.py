@@ -1,15 +1,22 @@
-"""The maintenance plane: seal and compact off the query path.
+"""The maintenance plane: seal, compact and re-placement off the query path.
 
-The port of ``repro/serve/maintenance.py`` for one device:
+The port of ``repro/serve/maintenance.py``:
 
 * :class:`IndexMaintenance` -- the per-index handle (``index.maintenance``)
-  that owns ``seal()`` and ``compact()``; a per-index mutex runs one
+  that owns ``seal()``, ``compact()`` and ``set_replication()``; a
+  per-index mutex runs one
   maintenance operation at a time (insert, delete and query are guarded by
   the index's own lock), so a seal can never interleave with the freeze,
-  build and swap of a compaction.  ``SegmentedIndex.seal`` and
-  ``.compact`` remain as ``DeprecationWarning`` shims over it.
+  build and swap of a compaction.  ``SegmentedIndex.seal``,
+  ``.compact`` and ``.set_replication`` remain as ``DeprecationWarning``
+  shims over it.
 * :class:`ServableMaintenance` -- the per-tenant handle
-  (``servable.maintenance``).
+  (``servable.maintenance``): the index handle plus what the serve layer
+  adds -- under ``replication="auto"`` each compaction re-places from the
+  fan-out telemetry (``router.auto_factors`` over ``shard_balance``'s
+  segment wins, then ``reset_fanout``), and every operation ends with
+  ``refresh_placement()``, so a sharded tenant's placement diff is paid on
+  the maintenance thread, not by the next query.
 * :class:`MaintenancePool` -- background workers: jobs queued per tenant,
   run on daemon threads and polled by id.
 
@@ -34,9 +41,8 @@ before the job reads as done, so a caller that waited sees them.
 The wire ``maintenance`` verb (``serve/frontend.py``) maps onto
 :meth:`MaintenancePool.submit` and ``job_status`` onto
 :meth:`MaintenancePool.status`; the kinds are the protocol's
-``MAINTENANCE_KINDS``.  Not ported yet (multi-device serving): the
-``set_replication`` kind, the ``auto`` re-placement and
-``refresh_placement``.
+``MAINTENANCE_KINDS``: ``seal``, ``compact`` and ``set_replication``
+(param ``replication``: None, an int or factors per sealed segment).
 """
 
 from __future__ import annotations
@@ -51,9 +57,10 @@ import traceback
 from typing import Any, Dict, Optional
 
 from ..obs import metrics as obs_metrics
+from .router import auto_factors
 
 #: job kinds the pool (and the wire ``maintenance`` verb) accepts
-KINDS = ("seal", "compact")
+KINDS = ("seal", "compact", "set_replication")
 
 
 class IndexMaintenance:
@@ -75,9 +82,15 @@ class IndexMaintenance:
         with self._mutex:
             return self._index._maint_compact()
 
+    def set_replication(self, replication) -> None:
+        """Set the sealed-segment replication policy (WAL-logged)."""
+        with self._mutex:
+            self._index._maint_set_replication(replication)
+
 
 class ServableMaintenance:
-    """Maintenance handle for one ``Servable`` (tenant)."""
+    """Maintenance handle for one ``Servable`` (tenant); each operation
+    ends with the index's ``refresh_placement()``."""
 
     def __init__(self, servable):
         self._sv = servable
@@ -89,11 +102,33 @@ class ServableMaintenance:
     def seal(self) -> int:
         """Seal the tenant's delta; returns the number of segments."""
         self.index.seal()
+        self._sv.index.refresh_placement()
         return len(self._sv.index.segments)
 
     def compact(self) -> int:
-        """Compact the tenant's index; returns the number of segments."""
-        return self.index.compact()
+        """Compact the tenant's index; returns the number of segments.
+        Under ``replication="auto"`` on a sharded tenant, the factors are
+        taken from the segment wins since the last re-placement (the
+        trailing slot, the delta's at record time, left out) and set after
+        the compaction; wins attach to positions, which a gid-order repack
+        roughly keeps."""
+        sv = self._sv
+        factors = None
+        lay = sv.index.shard_layout()
+        if sv.spec.replication_policy() == "auto" and lay is not None:
+            wins = sv.stats.shard_balance()["per_segment_wins"]
+            factors = auto_factors(wins[:-1], lay["n_dev"])
+        n = self.index.compact()
+        if factors is not None:
+            self.index.set_replication(factors)
+            sv.stats.reset_fanout()
+        sv.index.refresh_placement()
+        return n
+
+    def set_replication(self, replication) -> None:
+        """Set the tenant's replication policy and re-place now."""
+        self.index.set_replication(replication)
+        self._sv.index.refresh_placement()
 
 
 @dataclasses.dataclass
@@ -156,9 +191,9 @@ class MaintenancePool:
     def submit(self, tenant: str, kind: str, **params) -> str:
         """Queue one job; returns its id at once (poll with
         :meth:`status`).  ``params`` are kept on the job (``seal`` and
-        ``compact`` read none).  Raises ValueError on an unknown kind (the
-        wire layer answers ``bad_request``) and RuntimeError once the pool
-        is stopped."""
+        ``compact`` read none, ``set_replication`` its ``replication``).
+        Raises ValueError on an unknown kind (the wire layer answers
+        ``bad_request``) and RuntimeError once the pool is stopped."""
         if kind not in KINDS:
             raise ValueError(f"unknown maintenance kind {kind!r}; want one "
                              f"of {KINDS}")
@@ -266,5 +301,11 @@ class MaintenancePool:
         sv = self._registry.get(job.tenant)
         if job.kind == "seal":
             return {"n_segments": int(sv.maintenance.seal())}
-        n = sv.maintenance.compact()
-        return {"n_segments": int(n), "n_live": int(sv.index.n_live)}
+        if job.kind == "compact":
+            n = sv.maintenance.compact()
+            return {"n_segments": int(n), "n_live": int(sv.index.n_live)}
+        replication = job.params.get("replication")
+        if replication is not None and not isinstance(replication, int):
+            replication = tuple(int(f) for f in replication)
+        sv.maintenance.set_replication(replication)
+        return {"replication": job.params.get("replication")}

@@ -40,9 +40,8 @@ Ops (see :class:`~repro_torch.serve.frontend.Frontend`):
 =============  ==========================================================
 
 :data:`MAINTENANCE_KINDS` is the port's ``serve.maintenance.KINDS``:
-``seal`` and ``compact``.  The JAX package's third kind,
-``set_replication``, places segments across devices and arrives with the
-port's multi-device serving; until then such a frame is ``bad_request``.
+``seal``, ``compact`` and ``set_replication`` (``params``: ``replication``,
+None, an int or factors per sealed segment), the JAX package's kinds.
 """
 
 from __future__ import annotations
@@ -87,7 +86,7 @@ OPS = ("query", "insert", "delete", "embed", "maintenance", "job_status",
 
 #: Job kinds the ``maintenance`` verb accepts: the port's
 #: ``serve.maintenance.KINDS`` (tests hold the two equal).
-MAINTENANCE_KINDS = ("seal", "compact")
+MAINTENANCE_KINDS = ("seal", "compact", "set_replication")
 
 
 def encode(msg: dict) -> bytes:

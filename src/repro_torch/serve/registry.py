@@ -1,6 +1,6 @@
 """Servable registry: named endpoints over segmented indexes.
 
-The port of ``repro/serve/registry.py`` on one device.  A
+The port of ``repro/serve/registry.py``.  A
 :class:`ServableSpec` is the declarative tenant config; a
 :class:`Servable` is the live endpoint (embedder + segmented index +
 micro-batcher + stats); the :class:`ServableRegistry` maps names to
@@ -26,9 +26,16 @@ so ``family=`` injects one (tests hand both packages the same arrays).  A
 snapshot carries its family in its segments; a REGISTER record carries
 none, so a tenant rebuilt from the log alone draws it from its seed again
 (the JAX package's logs replay with ``SegmentedIndex.replay`` into an index
-built with the injected family).  ``shard_axis`` and ``replication`` are
-kept in the spec so that the records and manifests are the JAX package's;
-any value but their one-device defaults is refused.
+built with the injected family).
+
+Placement, as the JAX registry's: a registry built with ``mesh=`` (a
+``launch.mesh.ServeMesh``) shards every tenant whose ``shard_axis`` names
+the mesh's axis, and applies a ``static:k`` replication policy at
+registration (``auto`` starts unreplicated and re-places at each
+compaction, ``ServableMaintenance``); tenants without a shard axis stay on
+the registry's device.  ``report()`` and every snapshot carry the
+tenant's ``shard_layout``; ``restore`` and ``recover`` re-place a tenant
+onto the restoring registry's mesh, whatever its size (or none).
 
 Telemetry, as the JAX registry's: each servable's stats, index and
 batcher publish under its name as the ``tenant`` label, ``embed`` runs
@@ -43,8 +50,7 @@ The network front-end's tenant lifecycle, as the JAX registry's:
 a synced LIFECYCLE record to the tenant's WAL (recovery and the standby
 skip a tenant whose log ends "unloaded"); ``unregister`` drops the tenant
 and stops its batcher's pump thread, after which nothing of the registry
-holds its tensors.  Not ported yet (multi-device serving): placement
-across devices and ``set_replication``.
+holds its tensors.
 """
 
 from __future__ import annotations
@@ -92,10 +98,12 @@ class ServableSpec:
     chunk_sizes: Tuple[int, ...] = (8, 32, 128)
     max_delay_ms: float = 5.0
     seed: int = 0
-    # the JAX package's placement fields, kept so that a spec's records and
-    # manifests are byte for byte the JAX package's; only their one-device
-    # values are accepted
+    # the mesh axis to shard over (None: one device); with a registry mesh
+    # carrying that axis the tenant's sealed segments spread over its ranks
     shard_axis: Optional[str] = None
+    # hot-segment replication across the mesh: "none" | "static:k" (every
+    # sealed segment on k ranks) | "auto" (factors from shard_balance at
+    # every compaction, serve.router.auto_factors)
     replication: str = "none"
     # sealed-segment storage tier: "fp32" (exact, the default) | "bf16" |
     # "int8" (bounded-loss, survivor-reranked)
@@ -111,12 +119,25 @@ class ServableSpec:
             raise ValueError(
                 f"precision must be one of {dispatch.STORE_DTYPES}, "
                 f"got {self.precision!r}")
-        if (self.shard_axis, self.replication) != (None, "none"):
-            raise ValueError(
-                f"shard_axis={self.shard_axis!r} replication="
-                f"{self.replication!r}: placement across devices is not "
-                "ported yet (one device: shard_axis None, replication "
-                "'none')")
+        self.replication_policy()    # fail fast on a malformed policy
+
+    def replication_policy(self):
+        """The replication field parsed: None, an int k >= 1, or
+        ``"auto"``."""
+        rep = self.replication
+        if rep in ("none", None):
+            return None
+        if rep == "auto":
+            return "auto"
+        if isinstance(rep, str) and rep.startswith("static:"):
+            try:
+                k = int(rep.split(":", 1)[1])
+            except ValueError:
+                k = 0
+            if k >= 1:
+                return k
+        raise ValueError(
+            f"replication must be 'none', 'static:k' or 'auto', got {rep!r}")
 
     def index_config(self) -> IndexConfig:
         return IndexConfig(n_dims=self.n_dims, n_tables=self.n_tables,
@@ -139,9 +160,11 @@ def _spec_from_manifest(raw: Dict[str, Any]) -> ServableSpec:
 
 class Servable:
     """A live endpoint on ``device`` (default: the card; with no card and
-    no explicit ``device="cpu"`` construction raises)."""
+    no explicit ``device="cpu"`` construction raises).  With a ``mesh``
+    carrying ``spec.shard_axis`` the index is sharded over it."""
 
-    def __init__(self, spec: ServableSpec, *, device=None, family=None):
+    def __init__(self, spec: ServableSpec, *, device=None, family=None,
+                 mesh=None):
         self.spec = spec
         self.device = dispatch.resolve_device(device)
         self.embedder = make_embedder(spec.embedder, n_dims=spec.n_dims,
@@ -157,9 +180,16 @@ class Servable:
                                     survivor_k=spec.survivor_k,
                                     device=self.device, tenant=spec.name,
                                     on_fanout=self.stats.record_fanout)
-        # the tenant's maintenance handle (seal, compact); the
-        # MaintenancePool is its background caller
+        # the tenant's maintenance handle (seal, compact, replication);
+        # the MaintenancePool is its background caller
         self.maintenance = ServableMaintenance(self)
+        if spec.shard_axis is not None and mesh is not None \
+                and spec.shard_axis in mesh.axis_names:
+            self.index.shard(mesh, spec.shard_axis)
+            policy = spec.replication_policy()
+            if isinstance(policy, int):
+                self.index.maintenance.set_replication(policy)
+            # "auto" starts unreplicated and re-places at each compaction
         self.batcher = self.make_batcher(spec)
 
     def make_batcher(self, spec: ServableSpec) -> MicroBatcher:
@@ -230,6 +260,7 @@ class Servable:
                             "n_batches": self.batcher.n_batches,
                             "n_requests": self.batcher.n_requests},
                 "occupancy": occ,
+                "shard_layout": self.index.shard_layout(),
                 "store": store_report(self.index),
                 # the registry's view of this tenant: the names the
                 # exporter emits
@@ -238,7 +269,8 @@ class Servable:
 
 
 class ServableRegistry:
-    """Name -> Servable map; every tenant lives on ``device``.
+    """Name -> Servable map; every tenant lives on ``device``, and those
+    whose spec names ``mesh``'s axis are sharded over it.
 
     ``wal_dir``: when set, each tenant logs every mutation to
     ``<wal_dir>/<name>.wal`` before applying it, and :meth:`recover`
@@ -246,9 +278,11 @@ class ServableRegistry:
     group-commit interval (default ``$REPRO_WAL_FSYNC_EVERY``, 8).
     """
 
-    def __init__(self, *, device=None, wal_dir: Optional[str] = None,
+    def __init__(self, *, device=None, mesh=None,
+                 wal_dir: Optional[str] = None,
                  fsync_every: Optional[int] = None):
         self.device = dispatch.resolve_device(device)
+        self.mesh = mesh
         self._servables: Dict[str, Servable] = {}
         self._wal_dir = wal_dir
         self._fsync_every = fsync_every
@@ -281,7 +315,8 @@ class ServableRegistry:
         """Build and record the servable (callers hold the lock; no WAL)."""
         if spec.name in self._servables:
             raise ValueError(f"servable {spec.name!r} already registered")
-        sv = Servable(spec, device=self.device, family=family)
+        sv = Servable(spec, device=self.device, family=family,
+                      mesh=self.mesh)
         self._servables[spec.name] = sv
         return sv
 
@@ -360,7 +395,9 @@ class ServableRegistry:
                                   "sealed": s.sealed,
                                   "quantized": s.scale is not None}
                                  for s in idx.segments],
-                    "shard_layout": None,
+                    # for reports only: restore re-places from the spec
+                    # and the restoring registry's mesh
+                    "shard_layout": idx.shard_layout(),
                 }
                 if idx.wal is not None:
                     idx.wal.sync()

@@ -54,7 +54,24 @@ The port of ``repro/serve/segments.py`` on one device:
   form of the stacked query: the same function, each of its stages
   (``hash``, ``probe``, ``gather``, ``rerank``, ``merge``) under a span
   that ends with a device sync, so stage times are real.  Nothing of it
-  syncs, or adds an op, at sample 0.
+  syncs, or adds an op, at sample 0;
+* **shard(mesh)** serves the index over a ``launch.mesh.ServeMesh``: the
+  live sealed segments are placed round robin over its ranks
+  (``sharding.placement.place_segments``: one block of instances per rank,
+  on the rank's device), and a query runs
+  ``core.distributed.query_segments_sharded`` (hash and probe once, one
+  gather, one K2/K5 launch and one K3 a rank, the delta on rank 0, the
+  fan-in by ``ops.merge_topk_unique``), bit for bit the stacked query.
+  The placement is rebuilt lazily on the first query after a mutation of
+  the sealed set, as a diff of the last one (a seal moves one segment's
+  bytes; ``placement_replaced_bytes_total`` against
+  ``placement_restack_bytes_total``), and only re-takes the delta after a
+  delta-only mutation; ``refresh_placement`` pays the rebuild off the
+  query path.  ``maintenance.set_replication`` (factors per sealed
+  segment, an int, or None) puts hot segments on several ranks; a
+  ``serve.router.QueryRouter`` then activates one replica a segment per
+  micro-batch.  ``unshard()`` returns to the stack, which stays current
+  throughout;
 
 Every segment shares ONE hash family, so an item's buckets do not depend
 on which segment holds it, and (with no bucket overflowing) a segmented
@@ -70,6 +87,7 @@ import dataclasses
 import itertools
 import threading
 import warnings
+import zlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -81,8 +99,10 @@ from ..core.index import IndexConfig, LSHIndexState
 from ..kernels import dispatch, ops, quantize
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from ..sharding import placement as seg_placement
 from ..sharding.placement import SegmentStack
 from . import faults, wal as walmod
+from .router import QueryRouter
 
 
 @dataclasses.dataclass
@@ -100,10 +120,33 @@ class Segment:
     # of the stack's slot):
     scale: Optional[torch.Tensor] = None   # () f32 dequant scale
     pool: Optional[np.ndarray] = None      # (capacity, N) f32 survivor pool
+    # placement-diff fingerprints (``placement_key``): cached on sealed
+    # segments, the live half dropped when a tombstone lands
+    _content_key: Optional[tuple] = dataclasses.field(default=None,
+                                                      repr=False)
+    _live_key: Optional[int] = dataclasses.field(default=None, repr=False)
 
     @property
     def capacity(self) -> int:
         return self.gids.shape[0]
+
+    def placement_key(self) -> tuple:
+        """``(content, live)`` fingerprint for placement diffing.  A sealed
+        segment's rows follow from its ordered gids (one family for every
+        segment, an item's embedding never changes), so ``(n_items,
+        crc32(gids))`` names its content, and the live mask has a crc of
+        its own, so a delete in a sealed segment diffs as a mask-row
+        rewrite.  An unsealed segment gets a key that changes with every
+        mutation and is never cached."""
+        if not self.sealed:
+            k = ("unsealed", id(self), int(self.n_items), int(self.n_live))
+            return (k, k)
+        if self._content_key is None:
+            self._content_key = (int(self.n_items), zlib.crc32(
+                self.gids.cpu().numpy().tobytes()))
+        if self._live_key is None:
+            self._live_key = zlib.crc32(self.live.cpu().numpy().tobytes())
+        return (self._content_key, self._live_key)
 
     def occupancy(self) -> dict:
         cap = self.capacity
@@ -120,7 +163,8 @@ class Segment:
 
 class SegmentedIndex:
     """Mutable, queryable index built from fixed-shape segments on one
-    device (default: the card).
+    device (default: the card), its queries served there or, after
+    :meth:`shard`, over a serve mesh.
 
     ``family`` (alpha, b, mix) injects a hash family -- how tests hand the
     port and the JAX package the same one; otherwise it is drawn from
@@ -176,9 +220,22 @@ class SegmentedIndex:
         # logged record (replay itself)
         self._wal: Optional[walmod.WriteAheadLog] = None
         self._wal_mute = False
-        # the replication policy a SET_REPLICATION record set: kept, with
-        # no placement effect on one device
-        self.replication = None
+        # placement across a serve mesh (shard): two mutation counters
+        # drive the lazy rebuild -- _version bumps at every mutation (the
+        # delta is re-taken), _sealed_version only when the sealed set or
+        # a sealed live mask changes (the placement is diffed)
+        self._mesh = None
+        self._shard_axis: Optional[str] = None
+        self._placement = None
+        self._version = 0
+        self._sealed_version = 0
+        # the replication policy (None, an int, or factors per sealed
+        # segment), normalized against the mesh at each placement build
+        self._replication = None
+        self._router: Optional[QueryRouter] = None
+        # the route plan of this thread's last sharded query, for
+        # fanout_telemetry (the batcher calls it on the same thread)
+        self._tls = threading.local()
         self._open_segment()
 
     # -- lifecycle ----------------------------------------------------------
@@ -259,6 +316,8 @@ class SegmentedIndex:
             self._stack.seal(seg, *self._encode(seg))
         seg.sealed = True
         self._open_segment()
+        self._version += 1
+        self._sealed_version += 1
         self._publish_store_metrics()
 
     def _publish_store_metrics(self) -> None:
@@ -364,13 +423,113 @@ class SegmentedIndex:
         return out
 
     def _maint_set_replication(self, replication) -> None:
-        """Log and keep a replication policy (None, an int, or factors per
-        sealed segment).  One device: it places nothing."""
+        """Log and set the sealed-segment replication policy: None (factor
+        1), an int (every sealed segment, the ``static:k`` policy) or
+        factors per sealed segment (what ``auto`` derives from
+        ``shard_balance``), clipped to the mesh at each placement build.
+        Replicas are bit-equal, so it changes where queries run, never what
+        they answer; it takes effect at the next sharded query (a rebuild
+        and a fresh router) and is kept across shard()/unshard()."""
         with self._lock:
             if replication is not None and not isinstance(replication, int):
                 replication = tuple(int(f) for f in replication)
             self._log(walmod.encode_set_replication(replication))
-            self.replication = replication
+            self._replication = replication
+            self._version += 1
+            self._sealed_version += 1
+
+    def set_replication(self, replication) -> None:
+        """Deprecated: use ``index.maintenance.set_replication(...)``."""
+        warnings.warn(
+            "SegmentedIndex.set_replication() is deprecated; set policy "
+            "through the maintenance plane "
+            "(index.maintenance.set_replication(...))",
+            DeprecationWarning, stacklevel=2)
+        self._maint_set_replication(replication)
+
+    def replication(self):
+        """The replication policy as set (not normalized)."""
+        return self._replication
+
+    # -- placement across a serve mesh --------------------------------------
+
+    def shard(self, mesh, axis: str = "serve") -> None:
+        """Serve queries over ``mesh`` (a ``launch.mesh.ServeMesh``): the
+        live sealed segments round robin over its ``axis``, the delta
+        scored on rank 0.  Answers stay bit-equal to the stacked query;
+        the placement is built at the next query (or
+        :meth:`refresh_placement`)."""
+        if axis not in mesh.axis_names:
+            raise ValueError(
+                f"mesh has axes {mesh.axis_names}, no {axis!r} axis")
+        with self._lock:
+            self._mesh = mesh
+            self._shard_axis = axis
+            self._placement = None
+            self._router = None
+
+    def unshard(self) -> None:
+        """Back to the stacked query on the index's device (drops the
+        placement and its rank blocks)."""
+        with self._lock:
+            self._mesh = None
+            self._shard_axis = None
+            self._placement = None
+            self._router = None
+
+    def _current_placement(self):
+        """The up-to-date placement (callers hold the lock).  A changed
+        sealed set rebuilds through the last placement (a diff: unchanged
+        slots move 0 bytes) and publishes the bytes moved
+        (``placement_replaced_bytes_total``), a full restack's
+        (``placement_restack_bytes_total``) and the rebuild
+        (``placement_rebuilds_total{kind}``), and gets a fresh router when
+        a factor exceeds 1; a delta-only change re-takes the delta."""
+        pl = self._placement
+        if pl is None or pl.version != self._sealed_version:
+            sealed = [s for s in self.segments[:-1] if s.n_live > 0]
+            pl = seg_placement.place_segments(
+                sealed, self.delta, self._mesh, self._shard_axis,
+                self._sealed_version, replication=self._replication,
+                prev=pl, db_dtype=quantize.storage_dtype(self.precision),
+                quantized=self.precision != "fp32",
+                delta_version=self._version)
+            self._placement = pl
+            reg = obs_metrics.registry()
+            reg.inc("placement_replaced_bytes_total", pl.replaced_bytes,
+                    tenant=self.tenant)
+            reg.inc("placement_restack_bytes_total", pl.sealed_bytes,
+                    tenant=self.tenant)
+            reg.inc("placement_rebuilds_total", tenant=self.tenant,
+                    kind="diff" if pl.diffed else "full")
+            # a fresh ledger per placement: the instances it balances
+            # over just changed
+            self._router = (QueryRouter(pl.layout(), tenant=self.tenant)
+                            if any(f > 1 for f in pl.replication) else None)
+        elif pl.delta_version != self._version:
+            pl = seg_placement.refresh_delta(pl, self.delta, self._version)
+            self._placement = pl
+        return pl
+
+    def refresh_placement(self) -> None:
+        """Pay the lazy placement rebuild now, off the query path (the
+        maintenance handle calls it after each operation).  No-op when
+        unsharded."""
+        with self._lock:
+            if self._mesh is not None:
+                self._current_placement()
+
+    def shard_layout(self) -> Optional[dict]:
+        """The placement as data (``placement.layout_dict``), from host
+        counters only -- it never builds a placement; None when
+        unsharded."""
+        with self._lock:
+            if self._mesh is None:
+                return None
+            n_sealed = sum(1 for s in self.segments[:-1] if s.n_live > 0)
+            return seg_placement.layout_dict(self._mesh, self._shard_axis,
+                                             n_sealed,
+                                             replication=self._replication)
 
     def load_segments(self, segments: Sequence[Segment],
                       next_gid: int) -> None:
@@ -410,6 +569,9 @@ class SegmentedIndex:
             if not self.segments or self.delta.sealed:
                 self._open_segment()
             self._next_gid = int(next_gid)
+            # a sharded tenant re-places onto its mesh, of any size
+            self._version += 1
+            self._sealed_version += 1
 
     def layout(self) -> dict:
         """The stack's report: sealed count, slots, bytes."""
@@ -498,6 +660,7 @@ class SegmentedIndex:
                 seg.n_items += take
                 seg.n_live += take
                 pos += take
+            self._version += 1
         return out_gids
 
     def delete(self, gids: Sequence[int]) -> int:
@@ -534,7 +697,11 @@ class SegmentedIndex:
                 continue
             seg.live[slots] = False
             seg.n_live -= hits
+            seg._live_key = None
             n += hits
+            self._version += 1
+            if seg.sealed:
+                self._sealed_version += 1
         return n
 
     def live_items(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -679,6 +846,8 @@ class SegmentedIndex:
             pending, self._compact_deletes = self._compact_deletes, None
             if pending:
                 self._tombstone(sorted(pending))
+            self._version += 1
+            self._sealed_version += 1
             self._publish_store_metrics()
             return len(self.segments)
 
@@ -706,7 +875,7 @@ class SegmentedIndex:
         stage = (_StageSpans(tr, self.tenant, self.device)
                  if tr.deep and tr.sampled() else None)
         with self._lock:
-            return _blank_rows(*self._query_stacked(q, k, n_probes, stage),
+            return _blank_rows(*self._query_placed(q, k, n_probes, stage),
                                finite)
 
     def _queries(self, queries
@@ -729,6 +898,23 @@ class SegmentedIndex:
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         ok = (q - q) == 0
         return torch.where(ok, q, 0.0), ok.all(dim=1)
+
+    def _query_placed(self, q: torch.Tensor, k: int, n_probes: int,
+                      stage=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The stacked query, or when sharded the sharded one over the
+        current placement, the router's plan for this batch kept for
+        :meth:`fanout_telemetry` (callers hold the lock)."""
+        if self._mesh is None:
+            self._tls.plan = None
+            return self._query_stacked(q, k, n_probes, stage)
+        pl = self._current_placement()
+        plan = self._router.route() if self._router is not None else None
+        self._tls.plan = plan
+        st = self.delta.state
+        g, d = distributed.query_segments_sharded(
+            pl, (st.alpha, st.b, st.mix), self.cfg, q, k, n_probes=n_probes,
+            active=None if plan is None else plan.active, stage=stage)
+        return g.to(self.device), d.to(self.device)
 
     def _query_stacked(self, q: torch.Tensor, k: int, n_probes: int,
                        stage=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -799,7 +985,7 @@ class SegmentedIndex:
         answer."""
         kq = self._survivor_width(k, n_probes)
         with self._lock:
-            g, _ = self._query_stacked(q, kq, n_probes)
+            g, _ = self._query_placed(q, kq, n_probes)
         return self._rescore(q, g, k)
 
     def _rescore(self, q: torch.Tensor, g: torch.Tensor, k: int
@@ -868,9 +1054,49 @@ class SegmentedIndex:
     def fanout_telemetry(self, g_np: np.ndarray) -> None:
         """Feed the ``on_fanout`` hook one merged answer's wins per segment
         (the servable's batcher calls it with each chunk's host ids, which
-        it copies anyway; None hook: nothing)."""
-        if self._on_fanout is not None:
-            self._on_fanout(self.segment_wins(g_np))
+        it copies anyway; None hook: nothing).  When sharded, also the wins
+        per rank -- through the plan of this thread's last query when the
+        router picked replicas (the win goes to the replica that answered,
+        and the plan's instances per rank go along as the load), else
+        through the placement's assignment (a replica's wins to its first
+        holder); the delta's go to rank 0."""
+        if self._on_fanout is None:
+            return
+        plan = getattr(self._tls, "plan", None)
+        self._tls.plan = None
+        wins = self.segment_wins(g_np)
+        with self._lock:
+            pl = self._placement if self._mesh is not None else None
+            dev_wins = None if pl is None else self._device_wins(wins, pl,
+                                                                 plan)
+        if dev_wins is None:
+            self._on_fanout(wins)
+        elif plan is not None:
+            self._on_fanout(wins, dev_wins, None, plan.per_device_active)
+        else:
+            self._on_fanout(wins, dev_wins)
+
+    def _device_wins(self, wins: np.ndarray, pl, plan) -> np.ndarray:
+        """Wins per rank from wins per segment (callers hold the lock):
+        each live sealed segment's go to the rank ``plan`` routed it to,
+        or with no plan to its first holder in ``pl``; the delta's, and
+        any segment the placement does not know yet, to rank 0."""
+        sealed_pos = [i for i, s in enumerate(self.segments[:-1])
+                      if s.n_live > 0]
+        dev_of = np.zeros(wins.size, np.int64)
+        if plan is not None:
+            for fi, dev in plan.dev_of.items():
+                if fi < len(sealed_pos):
+                    dev_of[sealed_pos[fi]] = dev
+        else:
+            # lowest rank last, so a replicated segment ends at its first
+            # holder; the placement may lag a concurrent mutation
+            for dev in range(pl.n_dev - 1, -1, -1):
+                for fi in pl.assignment[dev]:
+                    if fi < len(sealed_pos):
+                        dev_of[sealed_pos[fi]] = dev
+        return np.bincount(dev_of, weights=wins,
+                           minlength=pl.n_dev).astype(np.int64)
 
     def occupancy(self) -> List[dict]:
         return [s.occupancy() for s in self.segments]

@@ -48,6 +48,9 @@ class WalStandby:
             when None.  It must have no ``wal_dir`` of its own: the
             standby appends nothing until promotion.
         device: the fresh registry's device (default: the card).
+        mesh: the fresh registry's serve mesh: a standby on a mesh shards
+            its replayed tenants as a primary would (the answers do not
+            depend on the mesh).
         poll_interval_s: the tailer thread's wait between polls.
         fsync_every: group-commit interval of the WALs attached at
             promotion (None: ``$REPRO_WAL_FSYNC_EVERY``).
@@ -55,11 +58,11 @@ class WalStandby:
 
     def __init__(self, wal_dir: str, *,
                  registry: Optional[ServableRegistry] = None, device=None,
-                 poll_interval_s: float = 0.05,
+                 mesh=None, poll_interval_s: float = 0.05,
                  fsync_every: Optional[int] = None):
         self.wal_dir = wal_dir
-        self.registry = (ServableRegistry(device=device) if registry is None
-                         else registry)
+        self.registry = (ServableRegistry(device=device, mesh=mesh)
+                         if registry is None else registry)
         self.poll_interval_s = float(poll_interval_s)
         self._fsync_every = fsync_every
         self._followers: Dict[str, walmod.WalFollower] = {}

@@ -1,15 +1,20 @@
 """Serving statistics: QPS, latency percentiles, recall proxy, occupancy.
 
-The port's own copy of the parts of ``repro/serve/stats.py`` one device
-uses (device wins and loads are multi-device telemetry, not ported yet).
-Host-side and lock-guarded: a bounded deque of (t, n) events per rate
-window and a bounded latency reservoir for percentiles.  Every record_*
+The port's own copy of ``repro/serve/stats.py``.  Host-side and
+lock-guarded: a bounded deque of (t, n) events per rate window and a
+bounded latency reservoir for percentiles.  Every record_*
 call also publishes into the ``obs.metrics`` registry under the
 servable's ``tenant`` label (``serve_queries_total`` and the rest);
 :meth:`ServingStats.snapshot` stays the in-process view.
 :meth:`ServingStats.record_fanout` takes the merged answer's wins per
 segment (``SegmentedIndex.segment_wins``) into
-``serve_segment_wins_total``.  The recall proxy
+``serve_segment_wins_total`` and, when sharded, its wins per rank into
+``serve_device_wins_total`` and a routed batch's instances per rank into
+``serve_device_load_total``; it also accumulates them positionally (slot
+i = segment or rank i at record time) for :meth:`ServingStats.
+shard_balance`, the ``auto`` replication policy's input, which
+:meth:`ServingStats.reset_fanout` zeroes at each re-placement.  The recall
+proxy
 replays a probe set through the segmented index and an exact brute-force
 scan over its live items.
 """
@@ -19,13 +24,23 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core import index as lidx
 from ..obs import metrics as obs_metrics
+
+
+def _accumulate(acc: np.ndarray, new) -> np.ndarray:
+    """acc += new, acc grown to len(new) (positional, zero-filled)."""
+    new = np.asarray(new, np.int64).ravel()
+    if new.shape[0] > acc.shape[0]:
+        acc = np.concatenate([acc, np.zeros(new.shape[0] - acc.shape[0],
+                                            np.int64)])
+    acc[:new.shape[0]] += new
+    return acc
 
 
 class ServingStats:
@@ -49,6 +64,12 @@ class ServingStats:
         self._rows_real = 0
         self._rows_pad = 0
         self._recall: Optional[float] = None
+        # fan-out balance: positional counters (see the module docstring)
+        self._seg_wins = np.zeros((0,), np.int64)
+        self._seg_cands = np.zeros((0,), np.int64)
+        self._dev_wins = np.zeros((0,), np.int64)
+        self._dev_load = np.zeros((0,), np.int64)
+        self._fanout_n = 0
 
     def _trim(self, dq: deque, now: float) -> None:
         while dq and dq[0][0] < now - self.window:
@@ -108,14 +129,76 @@ class ServingStats:
             self._recall = float(recall)
         self.metrics.set("serve_recall_proxy", recall, tenant=self.tenant)
 
-    def record_fanout(self, seg_wins) -> None:
-        """One merged answer's top-k slots won per segment (``seg_wins[i]``
-        for segment i, positional) into ``serve_segment_wins_total``."""
-        wins = np.asarray(seg_wins)
-        at = np.flatnonzero(wins)
-        self.metrics.inc_each("serve_segment_wins_total", "segment",
-                              zip(at.tolist(), wins[at].tolist()),
-                              tenant=self.tenant)
+    def record_fanout(self, seg_wins: Sequence[int],
+                      dev_wins: Optional[Sequence[int]] = None,
+                      seg_candidates: Optional[Sequence[int]] = None,
+                      dev_load: Optional[Sequence[int]] = None) -> None:
+        """One merged answer's attribution: ``seg_wins[i]`` top-k slots won
+        by segment i, ``dev_wins[d]`` by rank d (sharded only),
+        ``seg_candidates[i]`` valid candidates segment i offered, and
+        ``dev_load[d]`` instances rank d served (routed batches only)."""
+        with self._lock:
+            self._seg_wins = _accumulate(self._seg_wins, seg_wins)
+            if seg_candidates is not None:
+                self._seg_cands = _accumulate(self._seg_cands,
+                                              seg_candidates)
+            if dev_wins is not None:
+                self._dev_wins = _accumulate(self._dev_wins, dev_wins)
+            if dev_load is not None:
+                self._dev_load = _accumulate(self._dev_load, dev_load)
+            self._fanout_n += 1
+        for name, label, values in (
+                ("serve_segment_wins_total", "segment", seg_wins),
+                ("serve_device_wins_total", "device", dev_wins),
+                ("serve_device_load_total", "device", dev_load)):
+            if values is None:
+                continue
+            v = np.asarray(values, np.int64).ravel()
+            at = np.flatnonzero(v)
+            if at.size:
+                self.metrics.inc_each(name, label,
+                                      zip(at.tolist(), v[at].tolist()),
+                                      tenant=self.tenant)
+
+    def reset_fanout(self) -> None:
+        """Zero the positional fan-out counters (wins, candidates, loads):
+        the ``auto`` policy calls it after each re-placement, so the next
+        decision reads the traffic since this one.  Rates, latency and
+        totals stay."""
+        with self._lock:
+            self._seg_wins = np.zeros((0,), np.int64)
+            self._seg_cands = np.zeros((0,), np.int64)
+            self._dev_wins = np.zeros((0,), np.int64)
+            self._dev_load = np.zeros((0,), np.int64)
+            self._fanout_n = 0
+
+    def shard_balance(self) -> dict:
+        """Merge-win and candidate balance across segments and ranks:
+        ``merge_win_rate[i]``, segment i's share of the wins;
+        ``device_imbalance``, max / mean of the wins per rank (1.0 even,
+        0.0 with none); ``device_load_imbalance``, the same over routed
+        instances served (replicated serving only)."""
+        with self._lock:
+            seg_w = self._seg_wins.tolist()
+            seg_c = self._seg_cands.tolist()
+            dev_w = self._dev_wins.tolist()
+            dev_l = self._dev_load.tolist()
+            n = self._fanout_n
+        tot, dev_tot, load_tot = sum(seg_w), sum(dev_w), sum(dev_l)
+        return {
+            "n_sampled": n,
+            "per_segment_wins": seg_w,
+            "per_segment_candidates": seg_c,
+            "per_device_wins": dev_w,
+            "per_device_load": dev_l,
+            "merge_win_rate": [round(w / tot, 4) for w in seg_w] if tot
+            else [],
+            "device_imbalance": (round(max(dev_w) * len(dev_w) / dev_tot, 3)
+                                 if dev_tot else 0.0),
+            "device_load_imbalance": (
+                round(max(dev_l) * len(dev_l) / load_tot, 3)
+                if load_tot else 0.0),
+        }
 
     def _rate(self, dq: deque) -> float:
         now = self.clock()
@@ -154,7 +237,8 @@ class ServingStats:
                 **self.latency_percentiles(),
                 "totals": dict(self.totals),
                 "padding_efficiency": self.padding_efficiency(),
-                "recall_proxy": self._recall}
+                "recall_proxy": self._recall,
+                "shard_balance": self.shard_balance()}
 
 
 def recall_proxy(segmented, queries, k: int, n_probes: int = 1) -> float:

@@ -24,9 +24,11 @@ Then, with the server in this process (an asyncio loop on a thread):
   l2-basis at int8, the ``embed`` verb beside the JAX embedder;
 * the JAX package's ``FrontendClient`` against the port's server answers
   as the port's client;
-* ``update`` (the new palette, segment wins still counted, replication
-  refused as ``bad_request``), NaN / +-inf query rows, the ``maintenance``
-  verb under streamed queries, unknown job ids, ``unload`` leaving the
+* ``update`` (the new palette, segment wins still counted, a
+  replication update accepted as the JAX package accepts it, a family
+  field refused), NaN / +-inf query rows, the ``maintenance`` verb (and
+  its ``set_replication`` kind) under streamed queries, unknown job ids,
+  ``unload`` leaving the
   tenant's index collectable, and the maintenance pool's worker count
   from ``$REPRO_MAINT_WORKERS``.
 
@@ -561,8 +563,17 @@ def test_update_nan_rows_and_unload():
             assert shapes and shapes <= {4, 16, 64}
             assert c.stats(tenant)["report"]["batcher"]["unique_shapes"] \
                 == len(reg.get(tenant).batcher.shape_counts)
-            bad = dict(spec, replication="static:2")
-            r = c.request("update", spec=bad)
+            # accepted, as the JAX package's update accepts it; on an
+            # unsharded tenant it places nothing and no answer moves
+            r = c.update(dict(spec, replication="static:2"))
+            assert r["state"] == "ready" and r["changed"] == ["replication"]
+            assert reg.get(tenant).spec.replication == "static:2"
+            assert reg.get(tenant).index.shard_layout() is None
+            g, d = c.query_arrays(tenant, q, k=5, n_probes=2)
+            np.testing.assert_array_equal(g, ref_g.numpy())
+            np.testing.assert_array_equal(d.view(np.uint32),
+                                          ref_d.numpy().view(np.uint32))
+            r = c.request("update", spec=dict(spec, replication="static:0"))
             assert r["ok"] is False and r["code"] == "bad_request"
             r = c.request("update", spec=dict(spec, n_tables=2))
             assert r["code"] == "bad_request" and "n_tables" in r["error"]
@@ -584,6 +595,66 @@ def test_update_nan_rows_and_unload():
         assert ref_idx() is None             # nothing holds the index
         assert gm.value("tenant_lifecycle_transitions_total",
                         tenant=tenant, state="unloaded") == unloads + 1.0
+    finally:
+        srv.stop()
+
+
+def test_set_replication_over_the_wire_replaces():
+    """A sharded tenant on a 4-rank CPU mesh: a ``maintenance`` frame of
+    kind ``set_replication`` and an ``update`` of ``replication`` are
+    accepted and re-place the tenant (its layout's instances), and every
+    wire answer is bit-equal to the direct call."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    tenant = "fe-replicate"
+    reg = ServableRegistry(device="cpu",
+                           mesh=make_serve_mesh(4, device="cpu"))
+    spec = dataclasses.replace(tserve.default_specs(
+        n_dims=N_DIMS, segment_capacity=64, shard_axis="serve")[0],
+        name=tenant)
+    sv = reg.register(spec)
+    emb = np.random.default_rng(9).normal(size=(400, N_DIMS)).astype(
+        np.float32)
+    sv.insert(emb)
+    sv.delete(np.arange(0, 400, 5))
+    q = emb[:8] + 0.05
+    want = sv.index.query(q, 5, n_probes=2)
+    lay = sv.index.shard_layout()
+    assert (lay["n_dev"], lay["n_sealed"], lay["n_instances"]) == (4, 6, 6)
+
+    def wire_equals_direct(c):
+        g, d = c.query_arrays(tenant, q, k=5, n_probes=2)
+        dg, dd = sv.index.query(q, 5, n_probes=2)
+        np.testing.assert_array_equal(g, dg.numpy())
+        np.testing.assert_array_equal(d.view(np.uint32),
+                                      dd.numpy().view(np.uint32))
+        np.testing.assert_array_equal(g, want[0].numpy())
+
+    srv = _InProc(reg)
+    try:
+        with srv.client() as c:
+            wire_equals_direct(c)
+            job = c.maintenance(tenant, "set_replication",
+                                replication=[3, 1, 1, 1, 1, 2])
+            assert c.wait_job(job, timeout_s=TIMEOUT_S)["status"] == "done"
+            lay = sv.index.shard_layout()
+            assert lay["replication"] == [3, 1, 1, 1, 1, 2]
+            assert lay["n_instances"] == 9
+            # refreshed by the job, not by the next query
+            assert sv.index._placement.n_sealed == 6
+            assert sv.index._router is not None
+            for _ in range(3):               # routed batches rotate replicas
+                wire_equals_direct(c)
+            r = c.update(dict(dataclasses.asdict(sv.spec),
+                              replication="static:4"))
+            assert r["changed"] == ["replication"]
+            assert sv.index.replication() == 4
+            assert sv.index.shard_layout()["n_instances"] == 24
+            wire_equals_direct(c)
+            r = c.update(dict(dataclasses.asdict(sv.spec),
+                              replication="none"))
+            assert sv.index.replication() is None
+            assert sv.index._router is None
+            wire_equals_direct(c)
     finally:
         srv.stop()
 
@@ -633,8 +704,14 @@ def test_maintenance_verb_under_streamed_queries():
             assert all(same(a, pre) or same(a, post) for a in answers)
             assert c.request("job_status", job_id="mj-999")["code"] == \
                 "unknown_job"
-            r = c.request("maintenance", tenant=tenant,
-                          kind="set_replication")
+            # the JAX package's third kind: accepted, run, and on this
+            # unsharded tenant no answer moves
+            job = c.maintenance(tenant, "set_replication", replication=2)
+            st = c.wait_job(job, timeout_s=TIMEOUT_S)
+            assert st["result"] == {"replication": 2}
+            assert reg.get(tenant).index.replication() == 2
+            assert same(c.query_arrays(tenant, q, k=5, n_probes=2), post)
+            r = c.request("maintenance", tenant=tenant, kind="defrag")
             assert r["code"] == "bad_request"
             r = c.request("maintenance", tenant="fe-nobody", kind="seal")
             assert r["code"] == "unknown_tenant"

@@ -187,7 +187,11 @@ def test_servable_handle_and_compact_shim():
 
 
 def test_pool_kinds_leave_out_set_replication():
-    assert maint_mod.KINDS == ("seal", "compact")
+    # the JAX package's three kinds: set_replication places segments
+    # across a serve mesh
+    from repro.serve import maintenance as jmaint
+    assert maint_mod.KINDS == jmaint.KINDS == ("seal", "compact",
+                                                "set_replication")
 
 
 # -- after a compaction, against the JAX package ------------------------------
@@ -428,8 +432,11 @@ def test_pool_job_lifecycle_and_isolation():
         assert "KeyError" in bad["traceback"]
         again = pool.wait(pool.submit("t", "seal"), timeout_s=60.0)
         assert again["status"] == "done"
-        with pytest.raises(ValueError, match="set_replication"):
-            pool.submit("t", "set_replication")
+        rep = pool.wait(pool.submit("t", "set_replication",
+                                    replication=[2, 1]), timeout_s=60.0)
+        assert rep["status"] == "done"
+        assert rep["result"] == {"replication": [2, 1]}
+        assert reg.get("t").index.replication() == (2, 1)
         with pytest.raises(ValueError):
             pool.submit("t", "defrag")
         assert pool.status("mj-999") is None

@@ -667,6 +667,57 @@ def test_servable_request_trace_covers_every_stage():
     assert wins == held
 
 
+def test_sharded_deep_trace_covers_every_stage():
+    """One sampled request to a tenant sharded over an 8-rank CPU mesh:
+    the staged sharded query runs under the hash, probe, gather, rerank,
+    merge and fanin spans, all children of the batch span in the request's
+    one trace, bit-equal to the untraced query, and the wins land per rank
+    (the JAX package's ``tests/test_obs.py::
+    test_sharded_deep_trace_covers_every_stage``)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    name = _tenant()
+    reg = ServableRegistry(device="cpu",
+                           mesh=make_serve_mesh(8, device="cpu"))
+    sv = reg.register(ServableSpec(
+        name=name, n_dims=N_DIMS, r=2.0, log2_buckets=8, bucket_capacity=64,
+        segment_capacity=64, insert_chunk=32, chunk_sizes=(128,),
+        max_delay_ms=1.0, shard_axis="serve"))
+    rng = np.random.default_rng(0)
+    for _ in range(6):                       # several sealed segments
+        sv.insert(rng.normal(size=(64, N_DIMS)).astype(np.float32))
+    fv = rng.normal(size=(128, len(sv.nodes())))
+    q_base = sv.embed(fv).numpy()
+    base_g, base_d = (t.numpy() for t in sv.index.query(q_base, 10, 3))
+    m = obs_metrics.registry()
+    tr = obs_trace.tracer()
+    tr.drain()
+    try:
+        obs_trace.configure(sample_rate=1.0, deep=True)
+        with tr.span("request", tenant=name):
+            fut = sv.submit_query(sv.embed(fv).numpy(), 10, n_probes=3)
+            sv.batcher.flush_all()
+            g, d = fut.result(timeout=60)
+    finally:
+        obs_trace.configure(sample_rate=0.0, deep=False)
+        spans = [s for s in tr.drain() if s["attrs"].get("tenant") == name]
+    np.testing.assert_array_equal(base_g, g)
+    np.testing.assert_array_equal(base_d.view(np.uint32), d.view(np.uint32))
+    assert len({s["trace_id"] for s in spans}) == 1
+    by = {}
+    for s in spans:
+        by.setdefault(s["name"], []).append(s)
+    for stage in ("request", "admission", "embed", "batch", *STAGES,
+                  "fanin"):
+        assert stage in by, f"missing span {stage}: {sorted(by)}"
+    batch = by["batch"][0]
+    assert {s["parent_id"] for n in (*STAGES, "fanin") for s in by[n]} == {
+        batch["span_id"]}
+    _assert_nested(spans)
+    dev = [m.value("serve_device_wins_total", tenant=name, device=str(r))
+           for r in range(8)]
+    assert sum(v or 0 for v in dev) == int((g >= 0).sum())
+
+
 # ---------------------------------------------------------------------------
 # exporter
 # ---------------------------------------------------------------------------
@@ -807,9 +858,9 @@ def test_export_checker_tool_rejects_drift(tmp_path):
     assert "undocumented metric" in proc.stderr
 
 
-# only a multi-device serve emits it: device wins are attributed per device
-# of a mesh, and the port serves one device (its telemetry, with the router
-# and placement metrics, is a later slice)
+# only a multi-device serve emits it: device wins are attributed per rank
+# of a serve mesh, and this run serves one device (the sharded run below
+# exports it)
 DEVICE_ONLY = {"serve_device_wins_total"}
 
 
@@ -841,6 +892,38 @@ def test_launcher_metrics_dir_passes_the_export_checker(tmp_path):
         if o["kind"] == "metric":
             assert o["type"] == CATALOG[o["name"]].type
             assert sorted(o["labels"]) == sorted(CATALOG[o["name"]].labels)
+
+
+@pytest.mark.parametrize("replicate", ["static:2"])
+def test_sharded_launcher_exports_every_required_metric(tmp_path,
+                                                        replicate):
+    """The launcher serving over a 2-rank CPU mesh with replication
+    exports every required metric, ``serve_device_wins_total`` included:
+    the export checker finds nothing."""
+    d = tmp_path
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+           "cpu", "--tenants", "l2-basis", "--n-items", "2048", "--steps",
+           "3", "--wal-dir", str(d / "w"), "--snapshot", str(d / "s"),
+           "--metrics-dir", str(d / "m"), "--trace-sample", "1.0",
+           "--trace-deep", "--shard", "2", "--replicate", replicate]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env=_clean_env(), cwd=ROOT)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert "shards=2x2 replicas=4/2" in run.stdout, run.stdout[-2000:]
+    assert "shard_balance=" in run.stdout
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools",
+                                      "check_metrics_export.py"),
+         str(d / "m")], capture_output=True, text=True, timeout=120,
+        env=_clean_env())
+    assert proc.returncode == 0, proc.stderr
+    names = {json.loads(x)["name"] for x in
+             (d / "m" / "metrics.jsonl").read_text().splitlines()
+             if '"metric"' in x}
+    assert {"serve_device_wins_total", "serve_device_load_total",
+            "router_device_load", "placement_replaced_bytes_total",
+            "placement_restack_bytes_total",
+            "placement_rebuilds_total"} <= names
 
 
 # ---------------------------------------------------------------------------

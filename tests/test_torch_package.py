@@ -68,6 +68,36 @@ def test_sources_import_neither_jax_nor_repro(path):
     assert not bad, bad
 
 
+def test_multi_device_modules_import_neither_jax_nor_repro():
+    """The serve mesh, the router and the placement (its multi-device half
+    included) load in a fresh interpreter without jax or repro, and a mesh
+    asked of the card refuses to fall back to the CPU when there is none."""
+    code = ("import sys\n"
+            "import repro_torch.launch.mesh as m\n"
+            "import repro_torch.serve.router\n"
+            "import repro_torch.sharding.placement as p\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "assert p.round_robin(3, 2) == [[0, 2], [1]]\n"
+            "mesh = m.make_serve_mesh(4, device='cpu')\n"
+            "assert [str(d) for d in mesh.devices] == ['cpu'] * 4\n"
+            "import torch\n"
+            "if not torch.cuda.is_available():\n"
+            "    try:\n"
+            "        m.make_serve_mesh(2)\n"
+            "    except RuntimeError:\n"
+            "        pass\n"
+            "    else:\n"
+            "        raise AssertionError('a CPU mesh without asking')\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stdout + \
+        out.stderr
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: chip_smoke.py would run")

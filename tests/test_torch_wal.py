@@ -393,10 +393,10 @@ def test_set_replication_is_logged_kept_and_replayed(tmp_path):
     reg = _reg(wal_dir=str(tmp_path), fsync_every=1)
     idx = reg.register(_spec()).index
     idx._maint_set_replication([2, 1])
-    assert idx.replication == (2, 1)
+    assert idx.replication() == (2, 1)
     idx2 = _reg().register(_spec()).index
     idx2.replay(str(tmp_path / "t.wal"))
-    assert idx2.replication == (2, 1)
+    assert idx2.replication() == (2, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -437,15 +437,24 @@ def test_same_operations_write_byte_identical_logs(tmp_path, precision):
     {"replication": "static:2"}, {"replication": "auto"},
     {"shard_axis": "data"}], ids=["static", "auto", "shard-axis"])
 def test_spec_refuses_placement_across_devices(tmp_path, placement):
-    """The JAX placement fields are kept for byte-identical records, and
-    any value but their one-device default is refused, also from a
-    REGISTER record or a manifest: none is kept and then ignored."""
+    """The placement fields are the JAX package's: a shard axis and the
+    ``static:k`` / ``auto`` policies are accepted, also from a REGISTER
+    record or a manifest (as the JAX spec accepts them), and the REGISTER
+    record carries them byte for byte; a malformed policy is refused, as
+    the JAX spec refuses it."""
     from repro_torch.serve.registry import _spec_from_manifest
-    with pytest.raises(ValueError, match="not ported"):
-        ServableSpec(name="t", n_dims=N_DIMS, **placement)
+    spec = ServableSpec(name="t", n_dims=N_DIMS, **placement)
+    jspec = JSpec(name="t", n_dims=N_DIMS, **placement)
+    assert spec.replication_policy() == jspec.replication_policy()
     raw = dataclasses.asdict(ServableSpec(name="t", n_dims=N_DIMS))
-    with pytest.raises(ValueError, match="not ported"):
-        _spec_from_manifest(dict(raw, **placement))
+    assert _spec_from_manifest(dict(raw, **placement)) == spec
+    assert wal.encode_register(dataclasses.asdict(spec)) == \
+        jwal.encode_register(dataclasses.asdict(jspec))
+    for bad in ("static:0", "always"):
+        with pytest.raises(ValueError, match="replication"):
+            ServableSpec(name="t", n_dims=N_DIMS, replication=bad)
+        with pytest.raises(ValueError, match="replication"):
+            _spec_from_manifest(dict(raw, replication=bad))
 
 
 def test_register_record_is_the_jax_packages():
@@ -478,7 +487,7 @@ def test_jax_log_replays_in_the_port(tmp_path, precision, n_probes):
     assert rep["applied"] == rep["n_records"] == 9
     assert not rep["truncated"] and rep["dropped_duplicates"] == 0
     assert idx.n_live == jsv.index.n_live
-    assert idx.replication == 2
+    assert idx.replication() == 2
     q = _data(12, seed=5, scale=0.9)
     wi, wd = jsv.index.query(jnp.asarray(q), 10, n_probes=n_probes)
     _assert_parity(_answer(idx, q, n_probes=n_probes),
