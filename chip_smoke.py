@@ -159,8 +159,30 @@ each of which raises on failure (the script then exits non-zero):
    ``unshard()``'s; a ``maintenance`` frame of kind ``set_replication``
    and an ``update`` of ``replication`` over the wire, answers bit-equal
    to direct calls.  One ``sharded {...}`` line per tier.
+14. pod index, last: (a) ``core.distributed.build_distributed`` /
+   ``query_distributed`` / ``brute_force_distributed`` at the CPU tests'
+   shape (512 items, N 32, a 2 x 4 mesh, one numpy-drawn family a rank) on
+   ``cuda:0`` ranks against the same calls on ``cpu`` ranks: hashes apart
+   only at a floor boundary (counted), tables equal where hashes are,
+   query ids equal where distances are distinct (rows touched by a
+   boundary excepted, counted), brute force likewise, distances rtol 1e-5
+   atol 1e-6; (b) the paper's cell at full shape through
+   ``launch.lsh_cell.main`` (16,777,216 l2-basis items of N 64 embedded by
+   K4, 16 tables a rank of a 16 x 2 mesh on the card, 4,096 queries, k 10,
+   4 probes): card and host ms, bytes, operations, bound and peak memory
+   of the build, the query and brute force, launches, recall@10 and the
+   held share; then, on the cell's own tensors, every kernel launch of
+   its path at its shape against its plain version: K1 over a rank's
+   1,048,576 rows, K2 over its 4,096 x 8,192 candidates, the query's
+   fan-in (two K3 over (4,096, 320) pairs, bit for bit), K2 over one
+   brute-force chunk of 16,384 items (ids equal where distances are
+   distinct, rtol 1e-5; ``torch.cdist`` the library call), and brute
+   force's two K3 merges, (4,096, 640) and (4,096, 160), bit for bit.
+   One ``pod {...}`` line.
 
-Launch counts are read around each of phases 6-13.
+Launch counts are read around each of phases 6-13; in phase 14 they are
+the cell's own count of its embed and three timed calls (its warm-ups,
+profiled query and work count left out).
 
 The last lines are the card's name and power limit, one JSON object with
 a record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -172,11 +194,16 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2 and 6-13 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-14 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
 turns within one machine.
+
+    python3 chip_smoke.py --pod-only
+
+runs phases 1, 2 and 14 and ends with the card's line and one JSON object
+of the phase's numbers.
 """
 
 from __future__ import annotations
@@ -198,8 +225,6 @@ MAIN_STEPS = 20
 PARITY_ITEMS = 8192
 WARMUP, REPS, GRAPH_REPLAYS = 10, 50, 10
 HOST_CALLS, HOST_ROUNDS = 100, 9
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 
 SIMHASH_BATCH, SIMHASH_BITS = 512, 1024   # bench_hash_throughput's shape
 
@@ -305,9 +330,10 @@ def time_ms(fn, warmup=WARMUP, reps=REPS, replays=GRAPH_REPLAYS) -> float:
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / FP32_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    """The H100's bound in ms and what sets it (``launch/roofline.py``)."""
+    from repro_torch.launch import roofline
+    s, by = roofline.bound_by(nbytes, ops)
+    return s * 1e3, by
 
 
 def bits(t):
@@ -2701,24 +2727,18 @@ def sync_memory(dev):
 
 
 def kernels_in(dev, fn):
-    """Kernels on the card during ``fn()`` (torch.profiler's trace, as
-    ``profile_batches``); None on the CPU."""
+    """Kernels on the card during ``fn()``, counted from a profiled window
+    that lost no kernel record (``repro_torch.launch.profiled``); None on
+    the CPU or in a checkout without that module."""
     if dev.type != "cuda":
         fn()
         return None
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    try:
+        from repro_torch.launch.profiled import card_kernels
+    except ImportError:
         fn()
-        torch.cuda.synchronize(dev)
-    path = ROOT / "build" / "wire_batch_trace.json"
-    path.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text()).get("traceEvents", [])
-    path.unlink()
-    return sum(e.get("cat") == "kernel" for e in events)
+        return None
+    return card_kernels(fn, dev)
 
 
 def wire_streams(host, port, tenant, reqs):
@@ -3021,27 +3041,32 @@ def frontend_phase(reg, tier, card, smi):
                 raise AssertionError(f"front end ({tier}): the embed verb "
                                      "differs from Servable.embed")
             # kernels a wire batch launches, beside a direct call's on the
-            # same rows: the network layer adds none.  A profiled window
-            # now and then reports a few kernels fewer than were launched
-            # (PERF.md, phase 12), so each side is profiled three times, in
-            # turns, and the largest counts are compared
+            # same rows: the network layer adds none.  Each side is
+            # profiled three times, in turns, each count from a window
+            # that lost no kernel record (``kernels_in``), and all six
+            # must be equal
             q32 = rows[:32]
             wire_ks, direct_ks, nbs = [], [], []
-            for _ in range(3):
+
+            def two_wire_batches(out):
                 nb = sv.batcher.n_batches
-                wire_ks.append(kernels_in(dev, lambda: [c.query_arrays(
-                    "l2-basis", q32, k=FE_K, n_probes=FE_PROBES)
-                    for _ in range(2)]))
-                nbs.append(sv.batcher.n_batches - nb)
+                for _ in range(2):
+                    c.query_arrays("l2-basis", q32, k=FE_K,
+                                   n_probes=FE_PROBES)
+                out[0] = sv.batcher.n_batches - nb
+            for _ in range(3):
+                nb = [None]                  # batches in the window kept
+                wire_ks.append(kernels_in(dev, lambda: two_wire_batches(nb)))
+                nbs.append(nb[0])
                 direct_ks.append(kernels_in(dev, lambda: [
                     [t.cpu() for t in idx.query(q32, FE_K, FE_PROBES)]
                     for _ in range(2)]))
             if wire_ks[0] is not None:
-                wire_k, direct_k = max(wire_ks), max(direct_ks)
+                wire_k, direct_k = wire_ks[0], direct_ks[0]
                 res["kernels_per_wire_batch"] = wire_k / 2
                 res["kernels_per_direct_call"] = direct_k / 2
                 res["kernels_profiled_wire_direct"] = [wire_ks, direct_ks]
-                if nbs != [2, 2, 2] or wire_k != direct_k:
+                if nbs != [2, 2, 2] or len(set(wire_ks + direct_ks)) != 1:
                     raise AssertionError(
                         f"front end ({tier}): {wire_ks} kernels in {nbs} "
                         f"wire batches, {direct_ks} in 2 direct calls")
@@ -3287,10 +3312,11 @@ def drain_leg(sv, card, smi):
 
 
 def run_paths(card, smi):
-    """Phases 6-13: the fp32 main path (with phase 11 on its tenant), the
+    """Phases 6-14: the fp32 main path (with phase 11 on its tenant), the
     int8 path beside it (each with two profiled batches), the simhash
     path, the compaction of both tenants, the front end over both, the
-    l1-qmc and w2-quantile tenants, durability, then the sharded path;
+    l1-qmc and w2-quantile tenants, durability, the sharded path, then the
+    pod index and the paper's cell;
     the launch counts of the runs summed, and the profiles and
     reports."""
     import gc
@@ -3298,7 +3324,7 @@ def run_paths(card, smi):
     import torch
 
     from repro_torch.serve import ServableRegistry
-    log(f"[6/13] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/14] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve_run(
@@ -3310,7 +3336,7 @@ def run_paths(card, smi):
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
     runs_extra, telemetry = [], None
     if has_telemetry():
-        log(f"[11/13] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
+        log(f"[11/14] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
             "(before phase 7): deep-traced staged batches, their stage "
             "spans, the export against the catalog")
         counts11, telemetry = drive(lambda: telemetry_phase(
@@ -3318,9 +3344,9 @@ def run_paths(card, smi):
             "telemetry")
         runs_extra.append(counts11)
     else:
-        log("[11/13] telemetry: this checkout has no obs package")
+        log("[11/14] telemetry: this checkout has no obs package")
 
-    log(f"[7/13] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/14] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -3336,7 +3362,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/13] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/14] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -3352,7 +3378,7 @@ def run_paths(card, smi):
     compare_tiers(sv32, sv8, "compacted")
     frontend = {}
     if has_frontend():
-        log(f"[12/13] front end: a Frontend in this process on each tier's "
+        log(f"[12/14] front end: a Frontend in this process on each tier's "
             f"compacted tenant, {FE_STREAMS} connections x {FE_REQUESTS} "
             f"requests of {FE_ROWS} rows, NaN rows, embed, a wire-loaded "
             "l1-qmc tenant (ingest, compaction under queries, unload), "
@@ -3368,7 +3394,7 @@ def run_paths(card, smi):
         frontend["frontend drain"] = drain_leg(sv32, card, smi)
         log(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[12/13] front end: this checkout has no network front end")
+        log("[12/14] front end: this checkout has no network front end")
     keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
             "self_hit_rate")
     paths = {
@@ -3390,11 +3416,11 @@ def run_paths(card, smi):
         counts9, paths["tenants"] = tenants_phase(card, smi)
         runs += counts9
     else:
-        log("[9/13] tenants: this checkout serves l2-basis only")
+        log("[9/14] tenants: this checkout serves l2-basis only")
     gc.collect()
     torch.cuda.empty_cache()
     if hasattr(ServableRegistry, "recover"):
-        log(f"[10/13] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
+        log(f"[10/14] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
             f"a snapshot and a warm standby, then {DURABLE_STEPS} steps; "
             "kill -9 at wal.append and at compact.swap in children, each "
             "recovered in a fresh child; fp32 then int8")
@@ -3406,11 +3432,11 @@ def run_paths(card, smi):
             runs.append(c)
         log(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[10/13] durability: this checkout has no WAL")
+        log("[10/14] durability: this checkout has no WAL")
     gc.collect()
     torch.cuda.empty_cache()
     if has_sharding():
-        log(f"[13/13] sharded path ({smi}): repro_torch.launch.serve on "
+        log(f"[13/14] sharded path ({smi}): repro_torch.launch.serve on "
             f"a {SHARD_RANKS}-rank serve mesh over the card, l2-basis at "
             f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, fp32 (auto "
             "replication) then int8: answers unreplicated, static:2 routed "
@@ -3424,7 +3450,20 @@ def run_paths(card, smi):
         paths.update(sharded)
         log(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[13/13] sharded path: this checkout has no serve mesh")
+        log("[13/14] sharded path: this checkout has no serve mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if has_pod():
+        log(f"[14/14] pod index ({smi}): build, query and brute force on a "
+            f"{POD_MESH[0]} x {POD_MESH[1]} mesh of cuda:0 ranks against "
+            "cpu ranks; then the paper's cell through launch.lsh_cell at "
+            "16,777,216 items on a 16 x 2 mesh, and its kernels at its shapes")
+        t0 = time.perf_counter()
+        counts14, paths["pod"] = pod_phase(card, smi)
+        runs.append(counts14)
+        log(f"  phase 14 wall {time.perf_counter() - t0:.1f}s")
+    else:
+        log("[14/14] pod index: this checkout has no pod index")
     counts_all = {name: sum(c[name] for c in runs) for name in counts}
     return counts_all, paths
 
@@ -3760,6 +3799,384 @@ def sharded_phase(card, smi, loop_rates):
     return runs, out
 
 
+# -- phase 14: the independent-family pod index and the paper's cell --------
+
+
+POD_MESH = (2, 4)          # the CPU tests' mesh, items and width
+POD_ITEMS, POD_DIMS, POD_QUERIES = 512, 32, 16
+CELL_PATH = FP32_PATH      # K4 embeds the cell's items; K1, K2, K3 query
+
+
+def has_pod() -> bool:
+    try:
+        from repro_torch.core.distributed import build_distributed  # noqa
+        from repro_torch.launch import lsh_cell  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def topk_agree(what, ids_a, d_a, ids_b, d_b, explained=None):
+    """(ids, dists) of one call on two devices: distances allclose (rtol
+    1e-5, atol 1e-6) where both have an id, ids equal wherever ``d_b``'s
+    distances are distinct in their row, but in rows ``explained`` (a
+    boundary flip).  Returns the number of differing rows."""
+    ids_a, ids_b = np.asarray(ids_a), np.asarray(ids_b)
+    d_a, d_b = np.asarray(d_a), np.asarray(d_b)
+    explained = (np.zeros(len(ids_a), bool) if explained is None
+                 else explained)
+    differ = 0
+    for r in range(len(ids_a)):
+        if (ids_a[r] == ids_b[r]).all():
+            if not np.allclose(d_a[r], d_b[r], rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"{what}: row {r} distances differ "
+                                     f"{d_a[r]} / {d_b[r]}")
+            continue
+        differ += 1
+        if explained[r]:
+            continue
+        for c in range(ids_a.shape[1]):
+            others = np.delete(d_b[r], c)
+            if np.isfinite(d_b[r, c]) and not np.isclose(
+                    others, d_b[r, c], rtol=1e-5, atol=1e-6).any() \
+                    and ids_a[r, c] != ids_b[r, c]:
+                raise AssertionError(f"{what}: row {r} ids differ at a "
+                                     f"distinct distance: {ids_a[r]} / "
+                                     f"{ids_b[r]}")
+        if not np.allclose(d_a[r], d_b[r], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"{what}: row {r} distances differ")
+    return differ
+
+
+def pod_parity():
+    """Phase 14 (a): the pod index at the CPU tests' shape (512 items, N
+    32, a 2 x 4 mesh) on ``cuda:0`` ranks against the same calls on
+    ``cpu`` ranks with the same families: each rank's table and counts
+    equal unless a block item's projection lies at a floor boundary
+    (counted), the query's ids equal where distances are distinct (rows
+    touched by a boundary item or query excepted, counted), brute force's
+    ids and distances likewise."""
+    import torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import index as lidx
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = lidx.IndexConfig(n_dims=POD_DIMS, n_tables=4, n_hashes=4,
+                           log2_buckets=8, bucket_capacity=64, r=4.0)
+    rng = np.random.default_rng(2828)
+    db = rng.normal(size=(POD_ITEMS, POD_DIMS)).astype(np.float32)
+    q = (db[:POD_QUERIES] + 0.3 * rng.normal(
+        size=(POD_QUERIES, POD_DIMS))).astype(np.float32)
+    d, m = POD_MESH
+    fams = [[parity_family(cfg, rng) for _ in range(m)] for _ in range(d)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        mesh = make_test_mesh(POD_MESH, device=dev)
+        pod = dist.build_distributed(cfg, db, mesh, families=fams)
+        ids, dd = dist.query_distributed(pod, cfg, q, 10, n_probes=6)
+        eids, ed = dist.brute_force_distributed(db, q, 10, mesh)
+        got[dev] = dict(
+            tables=[[(st.table.cpu(), st.counts.cpu()) for st in row]
+                    for row in pod],
+            ids=ids.cpu().numpy(), d=dd.cpu().numpy(),
+            eids=eids.cpu().numpy(), ed=ed.cpu().numpy(),
+            on=str(ids.device))
+    if got["cuda"]["on"] != "cuda:0":
+        raise AssertionError(f"pod parity: the card's answer on "
+                             f"{got['cuda']['on']}")
+    n_local = POD_ITEMS // d
+    flips, ranks_apart = 0, 0
+    near_item = np.zeros(POD_ITEMS, bool)
+    near_q = np.zeros(POD_QUERIES, bool)
+    for di in range(d):
+        block = torch.as_tensor(db[di * n_local:(di + 1) * n_local])
+        for mi in range(m):
+            a, b = (torch.as_tensor(t) for t in fams[di][mi][:2])
+            hc, pj = ref.hash_mm_proj_ref(block, a, b, cfg.r)
+            hg, _ = lidx.hash_stage(a.cuda(), b.cuda(), cfg, block.cuda())
+            near = near_boundary(pj).any(dim=-1).numpy()
+            near_item[di * n_local:(di + 1) * n_local] |= near
+            _, pq = ref.hash_mm_proj_ref(torch.as_tensor(q), a, b, cfg.r)
+            near_q |= near_boundary(pq).any(dim=-1).numpy()
+            moved = (hg.reshape(n_local, -1).cpu() != hc).any(dim=-1).numpy()
+            if (moved & ~near).any():
+                raise AssertionError(f"pod parity: rank ({di}, {mi}) hashes "
+                                     f"{np.nonzero(moved & ~near)[0]} apart "
+                                     "away from a boundary")
+            flips += int(moved.sum())
+            (tc, cc), (tg, cg) = (got[dv]["tables"][di][mi]
+                                  for dv in ("cpu", "cuda"))
+            if not (torch.equal(tc, tg) and torch.equal(cc, cg)):
+                ranks_apart += 1
+                if not moved.any():
+                    raise AssertionError(f"pod parity: rank ({di}, {mi})'s "
+                                         "table differs with equal hashes")
+    cpu, card = got["cpu"], got["cuda"]
+    boundary_gids = set(np.nonzero(near_item)[0].tolist())
+    explained = np.array([
+        near_q[r] or bool((set(cpu["ids"][r].tolist())
+                           ^ set(card["ids"][r].tolist())) & boundary_gids)
+        for r in range(POD_QUERIES)])
+    q_rows = topk_agree("pod query", card["ids"], card["d"], cpu["ids"],
+                        cpu["d"], explained)
+    bf_rows = topk_agree("pod brute force", card["eids"], card["ed"],
+                         cpu["eids"], cpu["ed"])
+    res = {"mesh": list(POD_MESH), "items": POD_ITEMS, "dims": POD_DIMS,
+           "queries": POD_QUERIES, "ranks_with_table_flips": ranks_apart,
+           "items_hashed_apart": flips, "query_rows_differ": q_rows,
+           "brute_force_rows_differ": bf_rows,
+           "near_boundary_items": int(near_item.sum())}
+    log("  pod parity (cuda:0 ranks vs cpu ranks, one family a rank): "
+        + json.dumps(res))
+    return res
+
+
+def cell_kernel_records(state, cfg, q):
+    """K1 and K2 at the cell's shapes on rank (0, 0): K1 over its 1,048,576
+    rows (one build's hash), K2 over the 4,096 queries' deduped candidates
+    of its 16 tables x 4 probes x 128 slots; kernel (a CUDA graph of a few
+    calls), plain version and library call (a few calls: they materialise
+    gigabytes), bytes and operations for the bound, and the kernel's error
+    against the plain version."""
+    import torch
+    from repro_torch.core import index as lidx
+    from repro_torch.kernels import fused_query, hash_mm, ref
+    x, a, b, r = state.db, state.alpha, state.b, cfg.r
+    m, n = x.shape
+    k = a.shape[1]
+
+    def lib_hash():
+        pj = torch.matmul(x, a) / r + b
+        return torch.floor(pj).to(torch.int32), pj
+    hk, pk = hash_mm.hash_mm(x, a, b, r)
+    hp, pp = ref.hash_mm_proj_ref(x, a, b, r)
+    err1 = float((pk - pp).abs().max())
+    if not torch.allclose(pk, pp, rtol=1e-6, atol=1e-5):
+        raise AssertionError(f"cell K1: projections off by {err1}")
+    safe = ~near_boundary(pp)
+    if not torch.equal(hk[safe], hp[safe]):
+        raise AssertionError("cell K1: hashes differ away from a boundary")
+    del hk, pk, hp, pp, safe
+    k1 = dict(shape=f"X ({m}, {n}) @ A ({n}, {k})",
+              ms=time_ms(lambda: hash_mm.hash_mm(x, a, b, r), warmup=2,
+                         reps=5, replays=3),
+              plain_ms=time_ms(lambda: ref.hash_mm_proj_ref(x, a, b, r),
+                               **FEW),
+              library_ms=time_ms(lib_hash, **FEW), max_abs_err=err1,
+              bytes=4 * (m * n + n * k + k + 2 * m * k),
+              ops=2 * m * n * k + 2 * m * k)
+    cands = lidx._candidate_ids(state, cfg, q, 4, None)
+    dk, ik = fused_query.fused_query_topk(q, x, cands, 10)
+    dp, ip = ref.fused_query_topk_ref(q, x, cands, 10)
+    fin = torch.isfinite(dp)
+    err2 = float((dk[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
+    topk_agree("cell K2", ik.cpu(), dk.cpu(), ip.cpu(), dp.cpu())
+    del dp, ip
+    torch.cuda.empty_cache()
+    k2 = _k2_record(q, x, cands, 10, big=True)
+    k2["max_abs_err"] = err2
+    for rec in (k1, k2):
+        rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["ops"])
+    return {"hash_mm@cell": k1, "fused_query@cell": k2}
+
+
+def events_ms(fn, reps=3) -> float:
+    """Median card ms of ``fn()`` between CUDA events, after one warm-up
+    call (for calls too large, or with too many eager ops, to capture in a
+    graph)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def same_pairs(what, got, want):
+    """(dists, ids) of a merge bit for bit against its plain version's."""
+    import torch
+    if not (torch.equal(got[1].to(torch.int32), want[1].to(torch.int32))
+            and torch.equal(bits(got[0]), bits(want[0]))):
+        raise AssertionError(f"{what}: not bit-identical to the plain "
+                             "version")
+
+
+def cell_fan_in_record(pod, cfg, q):
+    """K3 at the pod query's fan-in, on the cell's own lists: every rank's
+    (4,096, 10) answer, (4,096, 320) pairs in all, through
+    ``ops.merge_topk_unique`` (two K3 launches) bit for bit against
+    ``ref.merge_topk_unique_ref`` on the card."""
+    import torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import dispatch, ops, ref
+    from repro_torch.launch import lsh_cell
+    pd, pg = dist.query_lists(pod, cfg, q, lsh_cell.K, lsh_cell.N_PROBES)
+    d, g = torch.cat(pd, dim=1), torch.cat(pg, dim=1)
+    del pd, pg
+    rows, m = d.shape
+    k = lsh_cell.K
+    before = dispatch.launches["merge"]
+    got = ops.merge_topk_unique(d, g, k)
+    if dispatch.launches["merge"] != before + 2:
+        raise AssertionError("cell fan-in: not two K3 launches")
+    want = ref.merge_topk_unique_ref(d, g, k)
+    same_pairs(f"cell fan-in ({rows}, {m})", got, want)
+    kept = got[1][got[1] >= 0]
+    rec = dict(shape=f"({rows}, {m}) pairs, {len(pod)} x {len(pod[0])} "
+                     f"ranks' top {k}, gids once -> {k}",
+               ms=events_ms(lambda: ops.merge_topk_unique(d, g, k)),
+               plain_ms=events_ms(lambda: ref.merge_topk_unique_ref(d, g,
+                                                                   k)),
+               library_ms=None, max_abs_err=0.0,
+               found=int(kept.numel()),
+               bytes=8 * rows * m + 8 * rows * k, ops=rows * m)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["ops"])
+    return rec
+
+
+def cell_brute_records(items, q, mesh_shape):
+    """Brute force's kernels at the cell's shapes, on the cell's own items
+    and queries: K2 over one 16,384-item chunk of data block 0 (every item
+    a candidate of each of the 4,096 queries) against the plain version
+    (``ref.fused_query_topk_ref``, 256 queries at a time) and ``torch.
+    cdist`` without the matmul plus a top k (the library call), ids equal
+    where distances are distinct and distances rtol 1e-5; then K3 at
+    block 0's merge of its chunks' lists and at the merge of the data
+    blocks' lists, each ``ops.merge_topk`` bit for bit against its plain
+    route, and block 0's merged list the first k columns of the
+    blocks'."""
+    import torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import lsh_cell
+    from repro_torch.launch.mesh import make_pod_mesh
+    k, nq = lsh_cell.K, q.shape[0]
+    d_ranks = mesh_shape[0]
+    n_local = items.shape[0] // d_ranks
+    block = items[:n_local].to(torch.float32).contiguous()
+    c = min(dist.BRUTE_CHUNK_MAX, n_local,
+            max(k, dist.BRUTE_IDS_MAX_ELEMS // nq))
+    rows = block[:c]
+    slots = torch.arange(c, dtype=torch.int32, device=q.device).expand(
+        nq, c).contiguous()
+
+    def plain():
+        parts = [ref.fused_query_topk_ref(q[s:s + 256], rows,
+                                          slots[s:s + 256], k)
+                 for s in range(0, nq, 256)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+
+    def library():
+        return torch.topk(torch.cdist(
+            q, rows, compute_mode="donot_use_mm_for_euclid_dist"), k,
+            largest=False)
+    dk, ik = ops.fused_query_topk(q, rows, slots, k)
+    dp, ip = plain()
+    err = float((dk - dp).abs().max())
+    rows_differ = topk_agree("brute chunk K2", ik.cpu(), dk.cpu(), ip.cpu(),
+                             dp.cpu())
+    k2 = dict(shape=f"q ({nq}, 64), db ({c}, 64) (block 0's first chunk), "
+                    f"ids ({nq}, {c}), every item a candidate, k={k}",
+              ms=time_ms(lambda: ops.fused_query_topk(q, rows, slots, k),
+                         **FEW),
+              plain_ms=events_ms(plain), library_ms=events_ms(library),
+              max_abs_err=err, rows_differ=rows_differ,
+              bytes=4 * (nq * 64 + nq * c + c * 64 + 2 * nq * k),
+              ops=3 * 64 * nq * c)
+    del dk, ik, dp, ip, slots
+    bd, bi = dist.block_lists(block, q, k)
+    got0 = ops.merge_topk(bd, bi, k)
+    same_pairs(f"brute chunks' merge {tuple(bd.shape)}", got0,
+               merge_topk_plain(bd, bi, k))
+    chunks = _k3_record(bd, bi, k)
+    chunks["shape"] += f" (block 0's {bd.shape[1] // k} chunks)"
+    del bd, bi, block
+    rd, rg = dist.brute_force_lists(items, q, k,
+                                    make_pod_mesh(mesh_shape, "cuda"))
+    if not (torch.equal(rg[:, :k], got0[1]) and
+            torch.equal(bits(rd[:, :k]), bits(got0[0]))):
+        raise AssertionError("brute force: block 0's list differs between "
+                             "block_lists and brute_force_lists")
+    same_pairs(f"brute blocks' merge {tuple(rd.shape)}",
+               ops.merge_topk(rd, rg, k), merge_topk_plain(rd, rg, k))
+    blocks = _k3_record(rd, rg, k)
+    blocks["shape"] += f" ({d_ranks} data blocks)"
+    for rec in (k2, chunks, blocks):
+        rec.setdefault("max_abs_err", 0.0)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["ops"])
+    return {"fused_query@brute_chunk": k2, "merge@brute_chunks": chunks,
+            "merge@brute_blocks": blocks}
+
+
+def pod_phase(card, smi):
+    """Phase 14 (see the module docstring): (a) :func:`pod_parity`; (b) the
+    cell at full shape through ``lsh_cell.main``, then every kernel launch
+    of its path at the cell's shapes against its plain version on the
+    cell's own tensors.  Returns (the launches of the cell's embed and
+    three timed calls, the numbers)."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import lsh_cell
+    t0 = time.perf_counter()
+    parity = pod_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = {}
+
+    def hold(pod, cfg, queries, items):
+        kept.update(pod=pod, cfg=cfg, q=queries, items=items)
+    out = ROOT / "build" / "lsh_cell.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    mesh = ",".join(map(str, lsh_cell.MESH))
+    _, res = drive(lambda: lsh_cell.main(
+        ["--mesh", mesh, "--out", str(out)], on_built=hold), card, smi,
+        CELL_PATH, "pod cell")
+    cell = res.pop("cell")
+    counts = {name: cell["launches"].get(name, 0) for name in dispatch.KERNELS}
+    missing = [name for name in CELL_PATH if counts[name] <= 0]
+    if missing:
+        raise AssertionError(f"pod cell: the timed calls never launched "
+                             f"{missing}")
+    if not cell["brute_force_finite"]:
+        raise AssertionError("pod cell: brute force gave a non-finite "
+                             "distance")
+    if not 0.0 <= cell["recall_at_10"] <= 1.0:
+        raise AssertionError(f"pod cell: recall {cell['recall_at_10']}")
+    for name, e in res.items():
+        if not (e["card_ms"] > 0 and e["bound_ms"] > 0):
+            raise AssertionError(f"pod cell: {name} {e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pod, cfg, q = kept.pop("pod"), kept["cfg"], kept["q"]
+    kernels = cell_kernel_records(pod[0][0], cfg, q)
+    kernels["merge_unique@fan_in"] = cell_fan_in_record(pod, cfg, q)
+    del pod
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.update(cell_brute_records(kept["items"], q, lsh_cell.MESH))
+    kept.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"card": smi, "mesh": cell["mesh"], "cell": cell,
+            "phases": {k: {f: e[f] for f in (
+                "card_ms", "host_ms", "bound_ms", "bound_by", "bytes", "ops",
+                "peak_bytes", "launches", "card_kernels") if f in e}
+                for k, e in res.items()},
+            "kernels_at_cell_shapes": kernels, "parity": parity,
+            "launches": counts, "wall_s": time.perf_counter() - t0}
+    log(f"  [{card}, {smi.split(',')[-1].strip()}] pod " + json.dumps(line))
+    return counts, line
+
+
 # -- phase 9: the l1-qmc and w2-quantile tenants -----------------------------
 
 
@@ -3817,7 +4234,7 @@ def tenants_phase(card, smi):
     from repro_torch.launch import w2_gate
     from repro_torch.serve import ServableRegistry
     names = ("l1-qmc", "w2-quantile")
-    log(f"[9/13] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+    log(f"[9/14] tenants: repro_torch.launch.serve, {', '.join(names)}, "
         f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
         "int8")
     params = {"mu": np.zeros(0), "sig": np.zeros(0)}
@@ -4191,14 +4608,18 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2 and 6-13 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-14 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
                     "the telemetry, the compactions, the front end, the "
                     "l1-qmc and "
-                    "w2-quantile tenants, durability and the sharded path, "
-                    "then one JSON "
+                    "w2-quantile tenants, durability, the sharded path "
+                    "and the pod index, then one JSON "
                     "line of profiles and reports; to profile another "
                     "checkout, copy this script to its root")
+    ap.add_argument("--pod-only", action="store_true",
+                    help="phases 1, 2 and 14 only: build, then the pod "
+                    "index against the CPU and the paper's cell, then one "
+                    "JSON line of its numbers")
     ap.add_argument("--durable-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire-client", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4219,14 +4640,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/13] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/14] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/13] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/14] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -4234,23 +4655,29 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(0)
+    if args.pod_only:
+        log(f"[14/14] pod index ({smi}), alone")
+        counts14, pod = pod_phase(card, smi)
+        print(smi)
+        print(json.dumps({"pod": pod}))
+        return 0
     if args.paths_only:
         paths = run_paths(card, smi)[1]
         print(smi)
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/13] CPU (plain versions) vs card (kernels) parity")
+        log("[4/14] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
         k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
-        log(f"[5/13] timings, {smi}")
+        log(f"[5/14] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/13] kernel checks against the plain versions on the card: "
+    log("[3/14] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
         "saturated / infinite / NaN projections bit-equal, and with a "
@@ -4375,7 +4802,7 @@ def main(argv=None) -> int:
     check_nan_queries()
     check_query_batched()
 
-    log("[4/13] CPU (plain versions) vs card (kernels) parity")
+    log("[4/14] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
     k2_p1_inputs = None
@@ -4383,7 +4810,7 @@ def main(argv=None) -> int:
         k2_p1_inputs = parity_run("l1-qmc")
         parity_run("w2-quantile")
 
-    log("[5/13] timings (median of CUDA events over "
+    log("[5/14] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn, k2_p1_inputs)

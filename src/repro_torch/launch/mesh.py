@@ -1,6 +1,7 @@
-"""The serve mesh: the ranks one process serves a sharded index over.
+"""The meshes of ranks one process drives: the serve mesh a sharded index is
+served over, and the two-axis pod mesh of the independent-family index.
 
-The port of ``repro/launch/mesh.py``'s ``make_serve_mesh``.  The JAX
+The port of ``repro/launch/mesh.py``.  The JAX
 package serves a mesh from one process (``shard_map``, single controller),
 and its tests force 8 host devices onto one CPU; the port keeps that
 design: one process drives every rank, and a :class:`ServeMesh` is an
@@ -12,6 +13,15 @@ physical device may hold several ranks:
 * with more cards, rank ``i`` is ``cuda:((base + i) % device_count)``,
   ``base`` the index of the card asked for (``cuda`` alone: the current
   one).
+
+:class:`PodMesh` is the ``(data, model)`` grid that
+``core.distributed.build_distributed`` and its query and brute force run
+over (:func:`make_test_mesh`, 2 x 4; :func:`make_production_mesh`, the
+pod's 16 x 16).  Its ranks follow the same rule, rank ``(di, mi)`` taking
+the place ``di * M + mi`` in the order above.  The JAX package's
+``multi_pod`` mesh adds a third axis that repeats the same index on a
+second pod; on one card that would only repeat the same work, so the port
+has no such mesh.
 
 Nothing here touches a device when it is imported.
 """
@@ -52,6 +62,17 @@ class ServeMesh:
                 "devices": [str(d) for d in self.devices]}
 
 
+def _ranks(n: int, device) -> Tuple[torch.device, ...]:
+    """``n`` ranks on ``device`` (resolved by ``dispatch.resolve_device``)
+    in the order the module docstring sets out."""
+    base = dispatch.resolve_device(device)
+    if base.type == "cpu":
+        return (base,) * n
+    count = torch.cuda.device_count()
+    return tuple(torch.device("cuda", (base.index + i) % count)
+                 for i in range(n))
+
+
 def make_serve_mesh(n_devices: Optional[int] = None, device=None,
                     axis: str = "serve") -> ServeMesh:
     """A mesh of ``n_devices`` ranks on ``device`` (``dispatch.
@@ -59,14 +80,56 @@ def make_serve_mesh(n_devices: Optional[int] = None, device=None,
     and no ``"cpu"`` it raises -- there is no CPU fallback on a card run).
     ``n_devices`` defaults to every card, or 1 on the CPU."""
     base = dispatch.resolve_device(device)
-    if base.type == "cpu":
-        n = 1 if n_devices is None else int(n_devices)
-        ranks = (base,) * n
+    if n_devices is not None:
+        n = int(n_devices)
     else:
-        count = torch.cuda.device_count()
-        n = count if n_devices is None else int(n_devices)
-        ranks = tuple(torch.device("cuda", (base.index + i) % count)
-                      for i in range(n))
+        n = 1 if base.type == "cpu" else torch.cuda.device_count()
     if n < 1:
         raise ValueError(f"a serve mesh needs at least one rank, got {n}")
-    return ServeMesh(devices=ranks, axis_names=(axis,))
+    return ServeMesh(devices=_ranks(n, base), axis_names=(axis,))
+
+
+@dataclasses.dataclass(frozen=True)
+class PodMesh:
+    """A ``(D, M)`` grid of ranks over the axes ``("data", "model")``:
+    ``devices[di][mi]`` is rank ``(di, mi)``.  ``shape`` maps each axis to
+    its size, as a JAX mesh's does."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, str] = ("data", "model")
+
+    def __post_init__(self):
+        if not self.devices or not self.devices[0]:
+            raise ValueError("a pod mesh needs at least one rank")
+        if any(len(row) != len(self.devices[0]) for row in self.devices):
+            raise ValueError("a pod mesh's rows must be equally long")
+        if len(self.axis_names) != 2:
+            raise ValueError(f"a pod mesh has two axes, got "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis_names[0]: len(self.devices),
+                self.axis_names[1]: len(self.devices[0])}
+
+
+def make_pod_mesh(shape: Tuple[int, int], device=None) -> PodMesh:
+    """A ``shape`` = (D, M) grid of ranks on ``device`` (``dispatch.
+    resolve_device``: the card unless ``"cpu"`` is asked for; no CPU
+    fallback on a card run)."""
+    d, m = (int(v) for v in shape)
+    if d < 1 or m < 1:
+        raise ValueError(f"a pod mesh needs at least one rank, got {shape}")
+    flat = _ranks(d * m, device)
+    return PodMesh(devices=tuple(flat[i * m:(i + 1) * m] for i in range(d)))
+
+
+def make_test_mesh(shape: Tuple[int, int] = (2, 4), device=None) -> PodMesh:
+    """The JAX package's test mesh, 2 x 4 by default."""
+    return make_pod_mesh(shape, device)
+
+
+def make_production_mesh(device=None) -> PodMesh:
+    """The pod's 16 x 16 mesh (JAX ``make_production_mesh()``; its
+    ``multi_pod`` form is not ported, see the module docstring)."""
+    return make_pod_mesh((16, 16), device)
