@@ -159,7 +159,7 @@ each of which raises on failure (the script then exits non-zero):
    ``unshard()``'s; a ``maintenance`` frame of kind ``set_replication``
    and an ``update`` of ``replication`` over the wire, answers bit-equal
    to direct calls.  One ``sharded {...}`` line per tier.
-14. pod index, last: (a) ``core.distributed.build_distributed`` /
+14. pod index: (a) ``core.distributed.build_distributed`` /
    ``query_distributed`` / ``brute_force_distributed`` at the CPU tests'
    shape (512 items, N 32, a 2 x 4 mesh, one numpy-drawn family a rank) on
    ``cuda:0`` ranks against the same calls on ``cpu`` ranks: hashes apart
@@ -179,13 +179,40 @@ each of which raises on failure (the script then exits non-zero):
    distinct, rtol 1e-5; ``torch.cdist`` the library call), and brute
    force's two K3 merges, (4,096, 640) and (4,096, 160), bit for bit.
    One ``pod {...}`` line.
+15. LM stack, last (after phase 14 releases its memory): (a) the
+   llama3.2-3b smoke config in fp32, one parameter set on the CPU and on
+   the card: forward logits (rtol 1e-4, atol 1e-4), the loss and every
+   gradient of a 4-micro-batch step (rtol 1e-4, atol 1e-5), 16 decode
+   steps through ``make_serve_step`` (logits, caches; signatures equal
+   except at a counted floor boundary on rows that embed alike), the
+   signature's K1 launch against its plain version, and the 30-step loss
+   decrease of ``tests/test_train.py``'s tiny setup on the card; (b)
+   llama3.2-3b at full width (28 layers, d 3,072, 32 padded heads, vocab
+   128,256, bf16 compute, fp32 master weights and moments, remat full)
+   drawn on the card: 4 steps of ``make_train_step`` at seq 2,048, global
+   batch 4, grad_accum 4 (finite loss and grad norm each step; step ms,
+   tokens/s, model FLOPs over step time and over the bf16 dense peak,
+   peak memory), then ``launch.train --smoke`` on the card to 40 steps
+   and again to 60, which must resume from 40; (c) the same weights in
+   the serve step with ``LshServeParams.create`` (64 nodes, 16 hashes):
+   batch 8, cache 2,048, rows 0-2 one 32-token prompt and rows 3-4
+   another, fed token by token, then 32 greedy steps: ms and tokens/s a
+   step beside the bound of the bytes a step reads, the signature's dedup
+   groups each step (rows 0-2 must share every signature), the greedy
+   tokens' agreement with the teacher-forced forward's argmax and the
+   largest |difference| over the logits' scale (reported); K1's launches
+   counted around (c), and K1 timed at the signature's shape.  A train
+   step and a decode step are each profiled once, from a window that lost
+   no kernel record (``launch/profiled.kernel_records``).  One ``lm``
+   line per part.
 
-Launch counts are read around each of phases 6-13; in phase 14 they are
-the cell's own count of its embed and three timed calls (its warm-ups,
-profiled query and work count left out).
+Launch counts are read around each of phases 6-13 and phase 15 (c); in
+phase 14 they are the cell's own count of its embed and three timed calls
+(its warm-ups, profiled query and work count left out).
 
 The last lines are the card's name and power limit, one JSON object with
-a record per kernel, and ``{"ok": true, "device": {...}}``.
+a record per kernel (K1 twice: at the index's shape and at the LM
+signature's), and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --timings-only
 
@@ -194,7 +221,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2 and 6-14 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-15 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -203,7 +230,7 @@ turns within one machine.
     python3 chip_smoke.py --pod-only
 
 runs phases 1, 2 and 14 and ends with the card's line and one JSON object
-of the phase's numbers.
+of the phase's numbers; ``--lm-only`` does the same for phase 15.
 """
 
 from __future__ import annotations
@@ -3324,7 +3351,7 @@ def run_paths(card, smi):
     import torch
 
     from repro_torch.serve import ServableRegistry
-    log(f"[6/14] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/15] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve_run(
@@ -3336,7 +3363,7 @@ def run_paths(card, smi):
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
     runs_extra, telemetry = [], None
     if has_telemetry():
-        log(f"[11/14] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
+        log(f"[11/15] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
             "(before phase 7): deep-traced staged batches, their stage "
             "spans, the export against the catalog")
         counts11, telemetry = drive(lambda: telemetry_phase(
@@ -3344,9 +3371,9 @@ def run_paths(card, smi):
             "telemetry")
         runs_extra.append(counts11)
     else:
-        log("[11/14] telemetry: this checkout has no obs package")
+        log("[11/15] telemetry: this checkout has no obs package")
 
-    log(f"[7/14] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/15] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -3362,7 +3389,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/14] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/15] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -3378,7 +3405,7 @@ def run_paths(card, smi):
     compare_tiers(sv32, sv8, "compacted")
     frontend = {}
     if has_frontend():
-        log(f"[12/14] front end: a Frontend in this process on each tier's "
+        log(f"[12/15] front end: a Frontend in this process on each tier's "
             f"compacted tenant, {FE_STREAMS} connections x {FE_REQUESTS} "
             f"requests of {FE_ROWS} rows, NaN rows, embed, a wire-loaded "
             "l1-qmc tenant (ingest, compaction under queries, unload), "
@@ -3394,7 +3421,7 @@ def run_paths(card, smi):
         frontend["frontend drain"] = drain_leg(sv32, card, smi)
         log(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[12/14] front end: this checkout has no network front end")
+        log("[12/15] front end: this checkout has no network front end")
     keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
             "self_hit_rate")
     paths = {
@@ -3416,11 +3443,11 @@ def run_paths(card, smi):
         counts9, paths["tenants"] = tenants_phase(card, smi)
         runs += counts9
     else:
-        log("[9/14] tenants: this checkout serves l2-basis only")
+        log("[9/15] tenants: this checkout serves l2-basis only")
     gc.collect()
     torch.cuda.empty_cache()
     if hasattr(ServableRegistry, "recover"):
-        log(f"[10/14] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
+        log(f"[10/15] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
             f"a snapshot and a warm standby, then {DURABLE_STEPS} steps; "
             "kill -9 at wal.append and at compact.swap in children, each "
             "recovered in a fresh child; fp32 then int8")
@@ -3432,11 +3459,11 @@ def run_paths(card, smi):
             runs.append(c)
         log(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[10/14] durability: this checkout has no WAL")
+        log("[10/15] durability: this checkout has no WAL")
     gc.collect()
     torch.cuda.empty_cache()
     if has_sharding():
-        log(f"[13/14] sharded path ({smi}): repro_torch.launch.serve on "
+        log(f"[13/15] sharded path ({smi}): repro_torch.launch.serve on "
             f"a {SHARD_RANKS}-rank serve mesh over the card, l2-basis at "
             f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, fp32 (auto "
             "replication) then int8: answers unreplicated, static:2 routed "
@@ -3450,11 +3477,11 @@ def run_paths(card, smi):
         paths.update(sharded)
         log(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[13/14] sharded path: this checkout has no serve mesh")
+        log("[13/15] sharded path: this checkout has no serve mesh")
     gc.collect()
     torch.cuda.empty_cache()
     if has_pod():
-        log(f"[14/14] pod index ({smi}): build, query and brute force on a "
+        log(f"[14/15] pod index ({smi}): build, query and brute force on a "
             f"{POD_MESH[0]} x {POD_MESH[1]} mesh of cuda:0 ranks against "
             "cpu ranks; then the paper's cell through launch.lsh_cell at "
             "16,777,216 items on a 16 x 2 mesh, and its kernels at its shapes")
@@ -3463,7 +3490,20 @@ def run_paths(card, smi):
         runs.append(counts14)
         log(f"  phase 14 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[14/14] pod index: this checkout has no pod index")
+        log("[14/15] pod index: this checkout has no pod index")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if has_lm():
+        log(f"[15/15] LM stack ({smi}): {LM_ARCH} smoke on the card against "
+            f"the CPU; then at full width {LM_TRAIN['steps']} train steps "
+            f"(seq {LM_TRAIN['seq']}, batch {LM_TRAIN['batch']}, grad_accum "
+            f"{LM_TRAIN['accum']}), launch.train --smoke stopped and resumed, "
+            f"and the serve step with the W2-LSH signature (batch "
+            f"{LM_SERVE['batch']}, cache {LM_SERVE['cache']})")
+        counts15, paths["lm"], _ = lm_phase(card, smi)
+        runs.append(counts15)
+    else:
+        log("[15/15] LM stack: this checkout has no LM stack")
     counts_all = {name: sum(c[name] for c in runs) for name in counts}
     return counts_all, paths
 
@@ -4234,7 +4274,7 @@ def tenants_phase(card, smi):
     from repro_torch.launch import w2_gate
     from repro_torch.serve import ServableRegistry
     names = ("l1-qmc", "w2-quantile")
-    log(f"[9/14] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+    log(f"[9/15] tenants: repro_torch.launch.serve, {', '.join(names)}, "
         f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
         "int8")
     params = {"mu": np.zeros(0), "sig": np.zeros(0)}
@@ -4596,6 +4636,464 @@ def durability_phase(card, smi, precision):
     return res
 
 
+# -- phase 15: the LM stack's dense transformer ------------------------------
+
+
+LM_ARCH = "llama3.2-3b"
+LM_TRAIN = dict(seq=2048, batch=4, accum=4, steps=4)   # (b) at full width
+LM_SERVE = dict(batch=8, cache=2048, prompt=32, greedy=32,
+                n_embed=64, n_hashes=16)               # (c) at full width
+LM_SMOKE_STEPS = (40, 60)      # launch.train --smoke, then resumed
+
+
+def has_lm() -> bool:
+    try:
+        from repro_torch.runtime import steps  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def lm_pair(cfg, seed=0):
+    """The model of ``cfg`` on the CPU and on the card, the card's loaded
+    with the CPU's parameters through ``convert`` (the same bits)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import get_model
+    api = get_model(cfg)
+    cpu = api.init(torch.Generator().manual_seed(seed))
+    card = api.init(torch.Generator(device="cuda").manual_seed(seed))
+    convert.lm_params_from_numpy(card, convert.lm_params_to_numpy(cpu))
+    return api, cpu, card
+
+
+def close(what, got, want, rtol, atol):
+    """Raise unless card ``got`` is allclose to CPU ``want``; the max
+    |difference|."""
+    import torch
+    got = got.detach().float().cpu()
+    want = want.detach().float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"lm {what}: card vs CPU max err {err:.3g} "
+                             f"(rtol {rtol}, atol {atol})")
+    return err
+
+
+def signature_apart(what, got, want, proj, margin=1e-4):
+    """Signatures of one step on two devices: equal except where the
+    reference projection lies within ``margin`` of an integer (counted).
+    Returns that count."""
+    near = (proj - proj.round()).abs() <= margin
+    apart = (got.cpu() != want.cpu()) & ~near.cpu()
+    if bool(apart.any()):
+        raise AssertionError(f"lm {what}: {int(apart.sum())} hashes apart "
+                             "off a floor boundary")
+    return int(near.sum())
+
+
+def lm_smoke_parity():
+    """Phase 15 (a): the llama3.2-3b smoke config in fp32 on the card
+    against the CPU on the same parameters: forward, one accumulated train
+    step's loss and gradients, 16 decode steps through the serve step
+    (logits, caches, signatures), the signature's K1 launch against its
+    plain version, and the tiny setup's 30-step loss decrease."""
+    import dataclasses
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import wasserstein
+    from repro_torch.data.pipeline import BigramLM
+    from repro_torch.kernels import hash_mm, ref
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rt
+    cfg = dataclasses.replace(smoke_config(LM_ARCH), grad_accum=4)
+    api, cpu, card = lm_pair(cfg)
+    rng = np.random.default_rng(15)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 64)),
+                           dtype=torch.int32)
+    out = {}
+    with torch.no_grad():
+        want, _ = api.forward(cpu, {"tokens": toks})
+        got, _ = api.forward(card, {"tokens": toks.cuda()})
+    out["forward_max_abs_err"] = close("forward", got, want, 1e-4, 1e-4)
+    loss_fn = rt.make_loss_fn(api, cfg)
+    lc, _ = rt.accumulate_grads(loss_fn, cpu, {"tokens": toks}, 4)
+    lg, _ = rt.accumulate_grads(loss_fn, card, {"tokens": toks.cuda()}, 4)
+    out["loss_cpu"], out["loss_card"] = float(lc), float(lg)
+    close("train loss", lg, lc, 1e-4, 1e-5)
+    out["grad_max_abs_err"] = max(
+        close(f"grad {n}", p.grad, q.grad, 1e-4, 1e-5)
+        for (n, p), (_, q) in zip(card.named_parameters(),
+                                  cpu.named_parameters()))
+    for m in (cpu, card):
+        m.zero_grad(set_to_none=True)
+    lsh_cpu = rt.LshServeParams.create(torch.Generator().manual_seed(1), cfg)
+    lsh_card = convert.lsh_serve_params_from_numpy(
+        lsh_cpu.nodes, lsh_cpu.volume, lsh_cpu.support, lsh_cpu.alpha,
+        lsh_cpu.b, lsh_cpu.r, device="cuda")
+    serves = [rt.make_serve_step(api, cfg, lsh) for lsh in (lsh_cpu, lsh_card)]
+    caches = [api.init_cache(8, 16, device=d) for d in ("cpu", "cuda")]
+    tok = toks[:, :1]
+    dec_err, boundary, k1, compared = 0.0, 0, 0.0, 0
+    for pos in range(16):
+        oc, caches[0] = serves[0](cpu, caches[0], tok, pos)
+        og, caches[1] = serves[1](card, caches[1], tok.cuda(), pos)
+        dec_err = max(dec_err, close(f"decode step {pos}", og["logits"],
+                                     oc["logits"], 1e-4, 1e-4))
+        emb_c = wasserstein.w2_embedding_logits(
+            oc["logits"][:, 0], lsh_cpu.support, lsh_cpu.nodes,
+            lsh_cpu.volume)
+        emb_g = wasserstein.w2_embedding_logits(
+            og["logits"][:, 0], lsh_card.support, lsh_card.nodes,
+            lsh_card.volume)
+        rows = (emb_g.cpu() == emb_c).all(dim=1)
+        compared += int(rows.sum())
+        _, proj = ref.hash_mm_proj_ref(emb_c, lsh_cpu.alpha, lsh_cpu.b,
+                                       lsh_cpu.r)
+        boundary += signature_apart(f"decode step {pos} signature",
+                                    og["lsh_sig"][rows.cuda()],
+                                    oc["lsh_sig"][rows], proj[rows])
+        # K1 at the signature's launch against its plain version on the card
+        h, p = hash_mm.hash_mm(emb_g.contiguous(), lsh_card.alpha,
+                               lsh_card.b, lsh_card.r)
+        hp, pp = ref.hash_mm_proj_ref(emb_g, lsh_card.alpha, lsh_card.b,
+                                      lsh_card.r)
+        k1 = max(k1, close("signature K1 projections", p, pp.cpu(),
+                                  1e-6, 1e-5))
+        boundary += signature_apart("signature K1", h, hp, pp)
+        tok = oc["next"]
+    out["decode_max_abs_err"] = dec_err
+    for key in ("k", "v"):
+        close(f"cache {key}", caches[1][key], caches[0][key], 1e-4, 1e-4)
+    if compared < 16 * 8 - 8:
+        raise AssertionError(f"lm: only {compared} of 128 decode rows embed "
+                             "alike on both devices")
+    out["signature_rows_compared"] = compared
+    out["signature_boundary_values"] = boundary
+    out["signature_k1_max_abs_err"] = k1
+
+    # the tiny setup of tests/test_train.py: 30 steps on the card
+    tiny = dataclasses.replace(smoke_config(LM_ARCH), n_layers=2,
+                               vocab_size=64)
+    tapi = get_model(tiny)
+    model = tapi.init(torch.Generator(device="cuda").manual_seed(0))
+    ocfg = adamw.OptConfig(lr=3e-3, warmup_steps=5, total_steps=100,
+                           weight_decay=0.0)
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    step = rt.make_train_step(tapi, tiny, ocfg)
+    lm = BigramLM(tiny.vocab_size, seed=1, branch=4)
+    losses = []
+    for i in range(30):
+        batch = {"tokens": torch.as_tensor(
+            lm.sample(np.random.default_rng(i), 8, 32)).cuda()}
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] - 0.3):
+        raise AssertionError(f"lm: the tiny setup's loss did not fall on the "
+                             f"card: {losses[::6]}")
+    out["tiny_losses"] = [losses[0], losses[-1]]
+    return out
+
+
+def cuda_ms(fn):
+    """``fn()``'s wall on the host clock, the card synchronised before and
+    after (ms), and its result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, res
+
+
+LM_KERNEL_KINDS = (("gemm", ("gemm", "cutlass", "xmma", "sm90_", "cublas",
+                             "nvjet")),
+                   ("reduce", ("reduce",)),
+                   ("copy", ("copy", "cat_", "CatArray", "Memcpy", "Memset",
+                             "index", "gather", "scatter")),
+                   ("elementwise", ("elementwise", "vectorized",
+                                    "unrolled")))
+
+
+def kernel_share(prof, ms):
+    """The profiled call's kernel time over ``ms``, the same call's
+    unprofiled wall (the profiler slows the host, not the kernels)."""
+    k = prof["kernel_ms"]
+    return k / ms if isinstance(k, float) else "not measured"
+
+
+def lm_profile(fn):
+    """Kernels of one call of ``fn()``, from the first profiled window that
+    lost no kernel record of the call (``repro_torch.launch.profiled
+    .kernel_records``; each window tried calls ``fn`` once): the call's
+    wall on the host clock, the card's summed kernel time (busy share), the
+    kernel count, the time by kind of kernel and the largest kernels.
+    "not measured" where no window of ``profiled.ATTEMPTS`` was whole; the
+    windows tried are reported either way."""
+    import torch
+    from repro_torch.launch import profiled
+    kern, span_us, seen = profiled.kernel_records(fn, torch.device("cuda"))
+    if kern is None:
+        return {"windows": seen, "wall_ms": "not measured",
+                "kernels": "not measured", "kernel_ms": "not measured",
+                "busy_share": "not measured"}
+    busy_us = sum(e.get("dur", 0) for e in kern)
+    kinds = {k: 0.0 for k, _ in LM_KERNEL_KINDS}
+    kinds["other"] = 0.0
+    by_name: dict = {}
+    for e in kern:
+        name = e["name"]
+        kind = next((k for k, tags in LM_KERNEL_KINDS
+                     if any(t in name for t in tags)), "other")
+        kinds[kind] += e["dur"] / 1e3
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"windows": seen, "wall_ms": span_us / 1e3, "kernels": len(kern),
+            "kernel_ms": busy_us / 1e3, "busy_share": busy_us / span_us,
+            "kernel_ms_by_kind": kinds, "top_kernels_ms": dict(top)}
+
+
+def lm_train_full(api, model, smi):
+    """Phase 15 (b): ``LM_TRAIN["steps"]`` steps of ``make_train_step`` at
+    full width (seq 2,048, global batch 4, grad_accum 4, remat full, bf16
+    compute, fp32 master weights and moments) on the synthetic stream;
+    then ``launch.train`` with ``--smoke`` on the card, stopped and
+    resumed."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as train_launch
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rt
+    tr = LM_TRAIN
+    cfg = dataclasses.replace(api.cfg, grad_accum=tr["accum"])
+    ocfg = adamw.OptConfig(warmup_steps=2, total_steps=tr["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    step = rt.make_train_step(api, cfg, ocfg)
+    pipe = SyntheticPipeline(cfg, ShapeConfig("train", tr["seq"], tr["batch"],
+                                              "train"), seed=0)
+    times, losses, gnorms = [], [], []
+    for i in range(tr["steps"]):
+        batch = {k: torch.as_tensor(v).cuda()
+                 for k, v in pipe.get_batch(i).items()}
+        ms, (_, opt, m) = cuda_ms(lambda: step(model, opt, batch))
+        times.append(ms)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        log(f"  lm train step {i}: {ms:.1f} ms, loss {losses[-1]:.4f}, "
+            f"grad norm {gnorms[-1]:.4f}")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"lm train: non-finite loss {losses} or grad "
+                             f"norm {gnorms}")
+    peak = torch.cuda.max_memory_allocated()
+    # one more step in its two halves (forward + backward over the
+    # micro-batches, then AdamW), each synchronised; then one profiled
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in pipe.get_batch(tr["steps"]).items()}
+    named = dict(model.named_parameters())
+    grads_ms, _ = cuda_ms(lambda: rt.accumulate_grads(
+        rt.make_loss_fn(api, cfg), model, batch, tr["accum"]))
+    adamw_ms, (_, opt, _) = cuda_ms(lambda: adamw.update(
+        ocfg, {n: p.grad for n, p in named.items()}, opt, named))
+    for p in named.values():
+        p.grad = None
+    prof = lm_profile(lambda: step(model, opt, batch))
+    del opt, named
+    step_s = statistics.median(times[1:]) / 1e3
+    tokens = tr["batch"] * tr["seq"]
+    flops = roofline.model_flops("train", cfg.active_param_count(),
+                                 tr["batch"], tr["seq"])
+    n_alloc = sum(p.numel() for p in model.parameters())
+    res = {"arch": cfg.name, "params_allocated": n_alloc,
+           "active_params": cfg.active_param_count(), **tr,
+           "remat": cfg.remat, "dtype": cfg.dtype,
+           "step_ms": step_s * 1e3, "step_ms_all": times,
+           "tokens_per_s": tokens / step_s, "model_flops": flops,
+           "model_flops_per_s": flops / step_s,
+           "mfu": flops / step_s / roofline.BF16_TENSOR_OPS_PER_S,
+           "max_memory_allocated": peak, "losses": losses,
+           "grad_norms": gnorms, "grads_ms": grads_ms, "adamw_ms": adamw_ms,
+           "adamw_bound_ms": 28 * n_alloc / roofline.HBM_BYTES_PER_S * 1e3,
+           "profile": prof,
+           "kernel_share_of_step": kernel_share(prof, step_s * 1e3)}
+
+    # the launcher on the card: --smoke, stopped at 40 steps, resumed to 60
+    with tempfile.TemporaryDirectory(prefix="lm-train-") as tmp:
+        runs = []
+        for n in LM_SMOKE_STEPS:
+            ms, r = cuda_ms(lambda n=n: train_launch.main(
+                ["--smoke", "--steps", str(n), "--ckpt", tmp]))
+            runs.append((ms, r))
+    (ms1, r1), (ms2, r2) = runs
+    if r1.resumed_from is not None or r2.resumed_from != LM_SMOKE_STEPS[0]:
+        raise AssertionError(f"lm launch.train: resumed_from "
+                             f"{r1.resumed_from} then {r2.resumed_from}")
+    if not (np.isfinite(r1.losses).all() and np.isfinite(r2.losses).all()
+            and len(r2.losses) == LM_SMOKE_STEPS[1] - LM_SMOKE_STEPS[0]):
+        raise AssertionError("lm launch.train: bad losses")
+    res["launch_train_smoke"] = {
+        "steps": list(LM_SMOKE_STEPS), "wall_ms": [ms1, ms2],
+        "final_loss": [r1.losses[-1], r2.losses[-1]],
+        "first_loss": r1.losses[0], "resumed_from": r2.resumed_from}
+    return res
+
+
+def lm_serve_full(api, model, smi):
+    """Phase 15 (c): the serve step at full width with the W^2-LSH
+    signature: batch 8, cache 2,048; rows 0-2 one 32-token prompt, rows 3-4
+    another, fed token by token, then 32 greedy steps; the signature's
+    dedup groups each step (rows 0-2 must share every signature); the
+    greedy tokens against the teacher-forced forward's argmax."""
+    import torch
+    from repro_torch.launch import roofline
+    from repro_torch.runtime import steps as rt
+    sv = LM_SERVE
+    cfg = api.cfg
+    lsh = rt.LshServeParams.create(torch.Generator(device="cuda")
+                                   .manual_seed(1), cfg,
+                                   n_embed=sv["n_embed"],
+                                   n_hashes=sv["n_hashes"])
+    serve = rt.make_serve_step(api, cfg, lsh)
+    b, t = sv["batch"], sv["prompt"] + sv["greedy"]
+    rng = np.random.default_rng(29)
+    prompts = rng.integers(0, cfg.vocab_size, (b, sv["prompt"]))
+    prompts[1:3] = prompts[0]
+    prompts[4] = prompts[3]
+    prompts = torch.as_tensor(prompts, dtype=torch.int32).cuda()
+    cache = api.init_cache(b, sv["cache"], device="cuda")
+    fed, sigs, dec_logits, times = [], [], [], []
+    tok = prompts[:, :1]
+    for pos in range(t):
+        ms, (out, cache) = cuda_ms(lambda: serve(model, cache, tok, pos))
+        times.append(ms)
+        fed.append(tok)
+        sigs.append(out["lsh_sig"])
+        dec_logits.append(out["logits"][:, 0])
+        tok = (prompts[:, pos + 1:pos + 2] if pos + 1 < sv["prompt"]
+               else out["next"])
+    sigs = torch.stack(sigs, dim=1).cpu().numpy()        # (B, T, K)
+    groups, shared_34 = [], 0
+    for pos in range(t):
+        rows = [tuple(r) for r in sigs[:, pos]]
+        groups.append(len(set(rows)))
+        if not rows[0] == rows[1] == rows[2]:
+            raise AssertionError(f"lm serve: rows 0-2 signatures differ at "
+                                 f"step {pos}")
+        shared_34 += rows[3] == rows[4]
+    seq = torch.cat(fed, dim=1)                           # (B, T)
+    with torch.no_grad():
+        full, _ = api.forward(model, {"tokens": seq})
+    dec = torch.stack(dec_logits, dim=1)                  # (B, T, V)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    scale = float(full.float().abs().max())
+    delta = float((dec.float() - full.float()).abs().max()) / scale
+    if not torch.isfinite(dec).all():
+        raise AssertionError("lm serve: non-finite decode logits")
+    step_s = statistics.median(times[1:]) / 1e3
+    prof = lm_profile(lambda: serve(model, cache, tok, t))
+    n_alloc = sum(p.numel() for p in model.parameters())
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    nbytes = 4 * n_alloc + cache_bytes
+    # the decode FLOPs are bf16 matrix products: the tensor cores' rate
+    bound_s, by = roofline.bound_by(nbytes, roofline.model_flops(
+        "decode", cfg.active_param_count(), b, 1),
+        roofline.BF16_TENSOR_OPS_PER_S)
+    return {"batch": b, "cache_len": sv["cache"], "steps": t,
+            "decode_ms": step_s * 1e3, "tokens_per_s": b / step_s,
+            "bound_ms": bound_s * 1e3, "bound_by": by,
+            "bound_bytes": nbytes, "decode_ms_first": times[0],
+            "dedup_groups": groups, "rows_3_4_shared_steps": shared_34,
+            "greedy_vs_forward_argmax": agree,
+            "max_abs_delta_over_scale": delta, "profile": prof,
+            "kernel_share_of_step": kernel_share(prof, step_s * 1e3)}, lsh, out
+
+
+def lm_k1_record(lsh, emb):
+    """K1 at the signature's launch: X (B, 64) @ A (64, 16), timed as phase
+    5 times K1, beside its plain version and the library's matmul."""
+    import torch
+    from repro_torch.kernels import hash_mm, ref
+    a, bb, r = lsh.alpha, lsh.b, lsh.r
+    m, n = emb.shape
+    k = a.shape[1]
+    h, p = hash_mm.hash_mm(emb, a, bb, r)
+    hp, pp = ref.hash_mm_proj_ref(emb, a, bb, r)
+    err = float((p - pp).abs().max())
+    signature_apart("K1 record", h, hp, pp)
+
+    def lib_hash():
+        pj = torch.matmul(emb, a) / r + bb
+        return torch.floor(pj).to(torch.int32), pj
+    nbytes = 4 * (m * n + n * k + k + 2 * m * k)
+    ops = 2 * m * n * k + 2 * m * k
+    bound, by = bound_ms(nbytes, ops)
+    return {"shape": f"X ({m}, {n}) @ A ({n}, {k})", "max_abs_err": err,
+            "ms": time_ms(lambda: hash_mm.hash_mm(emb, a, bb, r)),
+            "plain_ms": time_ms(lambda: ref.hash_mm_proj_ref(emb, a, bb, r)),
+            "library_ms": time_ms(lib_hash), "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def lm_phase(card, smi):
+    """Phase 15 (see the module docstring).  Returns (launch counts of the
+    full-width serve, the numbers, the signature's K1 record)."""
+    import gc
+    import threading
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import wasserstein
+    from repro_torch.models import get_model
+    t0 = time.perf_counter()
+    parity = lm_smoke_parity()
+    log(f"  lm (a) {json.dumps(parity)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    api = get_model(cfg)
+    ms, model = cuda_ms(lambda: api.init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    train = lm_train_full(api, model, smi)
+    train["init_ms"] = ms
+    log(f"  [{card}, {smi.split(',')[-1].strip()}] lm train "
+        + json.dumps(train))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = {}
+
+    def serve():
+        res, lsh, out = lm_serve_full(api, model, smi)
+        kept.update(lsh=lsh, logits=out["logits"])
+        return res
+    counts, served = drive(serve, card, smi, ("hash_mm",), "lm serve")
+    served["launches"] = counts
+    log(f"  [{card}, {smi.split(',')[-1].strip()}] lm serve "
+        + json.dumps(served))
+    lsh = kept["lsh"]
+    emb = wasserstein.w2_embedding_logits(
+        kept["logits"][:, 0], lsh.support, lsh.nodes, lsh.volume).contiguous()
+    k1 = lm_k1_record(lsh, emb)
+    del model, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    # host threads alive in this process (earlier phases' pumps and
+    # workers share the interpreter lock with this phase's dispatch)
+    line = {"card": smi, "parity": parity, "train": train, "serve": served,
+            "k1_signature": k1, "host_threads": threading.active_count(),
+            "wall_s": time.perf_counter() - t0}
+    log(f"  phase 15 wall {line['wall_s']:.1f}s, {line['host_threads']} host "
+        "threads")
+    return counts, line, k1
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -4608,18 +5106,22 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2 and 6-14 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-15 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
                     "the telemetry, the compactions, the front end, the "
                     "l1-qmc and "
                     "w2-quantile tenants, durability, the sharded path "
-                    "and the pod index, then one JSON "
+                    "the pod index and the LM stack, then one JSON "
                     "line of profiles and reports; to profile another "
                     "checkout, copy this script to its root")
     ap.add_argument("--pod-only", action="store_true",
                     help="phases 1, 2 and 14 only: build, then the pod "
                     "index against the CPU and the paper's cell, then one "
                     "JSON line of its numbers")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="phases 1, 2 and 15 only: build, then the LM "
+                    "stack against the CPU and at full width, then one JSON "
+                    "line of its numbers")
     ap.add_argument("--durable-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire-client", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4640,14 +5142,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/14] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/15] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/14] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/15] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -4656,10 +5158,16 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(0)
     if args.pod_only:
-        log(f"[14/14] pod index ({smi}), alone")
+        log(f"[14/15] pod index ({smi}), alone")
         counts14, pod = pod_phase(card, smi)
         print(smi)
         print(json.dumps({"pod": pod}))
+        return 0
+    if args.lm_only:
+        log(f"[15/15] LM stack ({smi}), alone")
+        lm = lm_phase(card, smi)[1]
+        print(smi)
+        print(json.dumps({"lm": lm}))
         return 0
     if args.paths_only:
         paths = run_paths(card, smi)[1]
@@ -4667,17 +5175,17 @@ def main(argv=None) -> int:
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/14] CPU (plain versions) vs card (kernels) parity")
+        log("[4/15] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
         k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
-        log(f"[5/14] timings, {smi}")
+        log(f"[5/15] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/14] kernel checks against the plain versions on the card: "
+    log("[3/15] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
         "saturated / infinite / NaN projections bit-equal, and with a "
@@ -4802,7 +5310,7 @@ def main(argv=None) -> int:
     check_nan_queries()
     check_query_batched()
 
-    log("[4/14] CPU (plain versions) vs card (kernels) parity")
+    log("[4/15] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
     k2_p1_inputs = None
@@ -4810,12 +5318,12 @@ def main(argv=None) -> int:
         k2_p1_inputs = parity_run("l1-qmc")
         parity_run("w2-quantile")
 
-    log("[5/14] timings (median of CUDA events over "
+    log("[5/15] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn, k2_p1_inputs)
 
-    counts, _ = run_paths(card, smi)
+    counts, paths = run_paths(card, smi)
 
     kernels = []
     for name in dispatch.KERNELS:
@@ -4826,6 +5334,17 @@ def main(argv=None) -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
             "launches": counts[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    if "lm" in paths:
+        # K1 at the LM serve step's signature, launched by phase 15's path
+        t = paths["lm"]["k1_signature"]
+        kernels.append({
+            "name": "hash_mm@lm_signature", "route": "cuda",
+            "source": "src/repro_torch/csrc/hash_mm.cu",
+            "replaces": REPLACES["hash_mm"],
+            "launches": paths["lm"]["serve"]["launches"]["hash_mm"],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -4,6 +4,9 @@ Tests hand the JAX package's family, built tables and sealed segments to
 the port with ``np.asarray`` of each leaf, so that both packages compute the
 same thing.  The same goes for what torch cannot redraw: a QMC embedder's
 ``"mc"`` nodes, a ``LazyCoeffs``' blocks and an ALSH's inner family.
+The LM stack's parameters cross the same way
+(:func:`lm_params_from_numpy`, :func:`lm_params_to_numpy`), as does the
+serve step's hashing state (:func:`lsh_serve_params_from_numpy`).
 Nothing here imports jax: the arrays arrive as numpy.  A bf16 array
 arrives as numpy's ``bfloat16`` (the ml_dtypes type), which torch cannot
 take; it crosses as its uint16 bits and is viewed as bf16 again.
@@ -138,3 +141,79 @@ def alsh_from_numpy(m: int, scale_u: float, variant: str, alpha, b=None,
         raise ValueError(variant)
     return ALSH(m=int(m), scale_u=float(scale_u), inner=inner,
                 variant=variant)
+
+
+# -- the LM stack -------------------------------------------------------------
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy: a bf16 tensor as its uint16 bits."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return t.numpy().copy()
+
+
+def _lm_path(name: str):
+    """A parameter's module name -> (path in the JAX tree, layer index or
+    None): ``layers.3.attn.wq`` -> (("layers", "attn", "wq"), 3),
+    ``embed.tok`` -> (("embed", "tok"), None)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ("layers",) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def lm_params_from_numpy(model, tree) -> None:
+    """Load the JAX ``api.init`` tree ``tree`` (numpy leaves; the layers'
+    leaves stacked on a leading L axis) into ``model`` (a
+    ``models.model.Transformer``), one block per slice, each leaf in the
+    parameter's own dtype and device."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            path, layer = _lm_path(name)
+            leaf = tree
+            for key in path:
+                leaf = leaf[key]
+            a = np.asarray(leaf) if layer is None else np.asarray(leaf)[layer]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: {a.shape} vs {tuple(p.shape)}")
+            p.copy_(rows_from_numpy(a, device=p.device))
+
+
+def lm_params_to_numpy(model, leaves=None) -> dict:
+    """The inverse: ``model``'s parameters as the JAX tree (names, nesting,
+    layers stacked on a leading axis), numpy on the host.  ``leaves``, a
+    ``{name: tensor}`` dict keyed like ``model.named_parameters()`` (the
+    gradients, say, or AdamW's moments), is laid out in their place."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, p in model.named_parameters():
+        t = p if leaves is None else leaves[name]
+        path, layer = _lm_path(name)
+        if layer is None:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = _to_numpy(t)
+        else:
+            stacks.setdefault(path, {})[layer] = _to_numpy(t)
+    for path, by_layer in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([by_layer[i] for i in sorted(by_layer)])
+    return tree
+
+
+def lsh_serve_params_from_numpy(nodes, volume, support, alpha, b, r,
+                                device=None):
+    """A JAX ``LshServeParams`` (nodes (N,), volume, support (V,), alpha
+    (N, K), b (K,), r) -> the port's, f32 on ``device``."""
+    from .runtime.steps import LshServeParams
+    dev = dispatch.resolve_device(device)
+    return LshServeParams(
+        nodes=_tensor(nodes, torch.float32, dev), volume=float(volume),
+        support=_tensor(support, torch.float32, dev),
+        alpha=_tensor(alpha, torch.float32, dev),
+        b=_tensor(b, torch.float32, dev), r=float(r))

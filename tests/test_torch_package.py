@@ -209,3 +209,22 @@ def test_front_end_modules_are_in_the_package():
     for name in ("Frontend", "FrontendClient", "FrontendError",
                  "RequestGate", "run_server", "wait_ready"):
         assert name in serve.__all__ and hasattr(serve, name)
+
+
+def test_the_lm_stack_is_covered():
+    """The LM stack's modules are in the package, so the import checks
+    above (a fresh interpreter; every source's import statements) cover
+    them."""
+    mods = set(_modules())
+    lm = {"repro_torch.configs", "repro_torch.configs.base",
+          "repro_torch.configs.registry", "repro_torch.models",
+          "repro_torch.models.common", "repro_torch.models.model",
+          "repro_torch.optim", "repro_torch.optim.adamw",
+          "repro_torch.runtime", "repro_torch.runtime.steps",
+          "repro_torch.runtime.driver", "repro_torch.data",
+          "repro_torch.data.pipeline", "repro_torch.launch.train",
+          "repro_torch.launch.roofline", "repro_torch.convert"}
+    assert lm <= mods, sorted(lm - mods)
+    sources = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    for sub in ("configs", "models", "optim", "runtime", "data"):
+        assert f"src/repro_torch/{sub}/__init__.py" in sources, sub

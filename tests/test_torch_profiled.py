@@ -85,3 +85,53 @@ def test_card_kernels_gives_up(monkeypatch):
 def test_card_kernels_refuses_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         profiled.card_kernels(lambda: None, torch.device("cpu"))
+
+
+def timed(corr, dur, name="void at::native::vectorized_elementwise_kernel"):
+    return dict(kernel(corr, name), dur=dur)
+
+
+def test_span_kernels_keeps_the_calls_kernels_with_their_durations():
+    events = (prefix(250, 6) + [span(1000.0, 500.0)]
+              + [launch(1000 + i, 1001.0 + i) for i in range(3)]
+              + [timed(1000 + i, 2.5 * (i + 1)) for i in range(3)]
+              + [launch(2000, 1100.0, "cuLaunchKernelEx", "cuda_driver"),
+                 timed(2000, 4.0, "row_topk_kernel<float, 2>")]
+              # launched after the span: not the call's
+              + [launch(3000, 1600.0), timed(3000, 99.0)])
+    kernels, lost, span_us = profiled.span_kernels(events)
+    assert lost == 0 and span_us == 500.0
+    assert sorted(e["args"]["correlation"] for e in kernels) == [
+        1000, 1001, 1002, 2000]
+    assert sum(e["dur"] for e in kernels) == 19.0
+
+
+def test_span_kernels_counts_the_lost_and_needs_one_span():
+    events = (prefix(256, 0) + [span(1000.0, 500.0)]
+              + [launch(1000 + i, 1001.0 + i) for i in range(5)]
+              + [timed(1000 + i, 1.0) for i in (0, 2, 4)])
+    kernels, lost, _ = profiled.span_kernels(events)
+    assert (len(kernels), lost) == (3, 2)
+    assert profiled.span_kernels(prefix(3, 0)) == (None, None, None)
+
+
+def test_kernel_records_keeps_the_first_whole_window(monkeypatch):
+    def trace(n_lost):
+        return ([span(0.0, 40.0)] + [launch(i, 1.0 + i) for i in range(4)]
+                + [timed(i, 2.0) for i in range(n_lost, 4)])
+    seen = iter([trace(2), [], trace(0), trace(1)])
+    monkeypatch.setattr(profiled, "_trace", lambda fn, dev: next(seen))
+    kernels, span_us, tried = profiled.kernel_records(
+        lambda: None, torch.device("cuda:0"))
+    assert len(kernels) == 4 and span_us == 40.0
+    assert tried == [(2, 2), (None, None), (4, 0)]
+
+
+def test_kernel_records_without_a_whole_window(monkeypatch):
+    lossy = [span(0.0, 10.0), launch(1, 1.0), launch(2, 2.0), timed(2, 1.0)]
+    monkeypatch.setattr(profiled, "_trace", lambda fn, dev: lossy)
+    monkeypatch.setattr(profiled, "ATTEMPTS", 3)
+    assert profiled.kernel_records(lambda: None, torch.device("cuda:0")) == (
+        None, None, [(1, 1)] * 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        profiled.kernel_records(lambda: None, torch.device("cpu"))
