@@ -205,14 +205,39 @@ each of which raises on failure (the script then exits non-zero):
    step and a decode step are each profiled once, from a window that lost
    no kernel record (``launch/profiled.kernel_records``).  One ``lm``
    line per part.
+16. LM families, last: (a) the smoke configs of qwen2-moe-a2.7b,
+   arctic-480b, mamba2-2.7b, recurrentgemma-2b and seamless-m4t-medium in
+   fp32, each on the CPU and on the card with one parameter set, at phase
+   15 (a)'s bars: forward logits and aux loss, the loss and every gradient
+   of a 4-micro-batch step, 16 decode steps through ``make_serve_step``
+   (logits, every cache leaf -- K/V, ring buffers, conv and recurrent
+   states, the enc-dec's cross cache filled by ``fill_cross_cache`` --,
+   signatures), the signature's K1 launch; and a mamba2 step at its
+   config's SSD chunk of 256, whose gradients must be finite and agree;
+   (b) at full width, bf16 compute, fp32 master weights and moments, remat
+   full: 3 steps of ``make_train_step`` at seq 2,048, global batch 4,
+   grad_accum 4 of mamba2-2.7b (64 layers), recurrentgemma-2b (26, heads
+   padded 10 -> 16), seamless-m4t-medium (12 + 12, frames one a token)
+   and qwen2-moe-a2.7b cut to 4 of 24 layers: step ms (median of steps
+   2-3), tokens/s, ``mfu`` on active parameters, peak memory, 0 non-finite
+   steps; (c) each of the five at full width in the serve step with the
+   signature, batch 8, cache 2,048 (qwen2-moe at full depth, arctic cut to
+   2 of 35 layers, decode only; seamless after ``encode`` of 8 x 1,024
+   frames and ``fill_cross_cache``): rows 0-2 one prompt (and one set of
+   frames), rows 3-4 another, 8 prompt tokens then greedy, 16 steps: decode
+   ms and tokens/s beside the bound of the bytes a step reads, K1 launched
+   once a step, rows 0-2 sharing every signature; (d) one decode step per
+   family profiled as in phase 15.  Every cut is listed in the phase's
+   line.  One ``lm families (a)`` line, one ``train`` line per trained and
+   one ``serve`` line per served config.
 
-Launch counts are read around each of phases 6-13 and phase 15 (c); in
-phase 14 they are the cell's own count of its embed and three timed calls
-(its warm-ups, profiled query and work count left out).
+Launch counts are read around each of phases 6-13, phase 15 (c) and phase
+16 (b)-(d); in phase 14 they are the cell's own count of its embed and
+three timed calls (its warm-ups, profiled query and work count left out).
 
 The last lines are the card's name and power limit, one JSON object with
-a record per kernel (K1 twice: at the index's shape and at the LM
-signature's), and ``{"ok": true, "device": {...}}``.
+a record per kernel (K1 three times: at the index's shape and at the LM
+signatures of phases 15 and 16), and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --timings-only
 
@@ -221,7 +246,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2 and 6-15 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-16 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -230,7 +255,8 @@ turns within one machine.
     python3 chip_smoke.py --pod-only
 
 runs phases 1, 2 and 14 and ends with the card's line and one JSON object
-of the phase's numbers; ``--lm-only`` does the same for phase 15.
+of the phase's numbers; ``--lm-only`` does the same for phase 15 and
+``--families-only`` for phase 16.
 """
 
 from __future__ import annotations
@@ -3339,11 +3365,11 @@ def drain_leg(sv, card, smi):
 
 
 def run_paths(card, smi):
-    """Phases 6-14: the fp32 main path (with phase 11 on its tenant), the
+    """Phases 6-16: the fp32 main path (with phase 11 on its tenant), the
     int8 path beside it (each with two profiled batches), the simhash
     path, the compaction of both tenants, the front end over both, the
-    l1-qmc and w2-quantile tenants, durability, the sharded path, then the
-    pod index and the paper's cell;
+    l1-qmc and w2-quantile tenants, durability, the sharded path, the pod
+    index and the paper's cell, then the LM stack and its other families;
     the launch counts of the runs summed, and the profiles and
     reports."""
     import gc
@@ -3351,7 +3377,7 @@ def run_paths(card, smi):
     import torch
 
     from repro_torch.serve import ServableRegistry
-    log(f"[6/15] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/16] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve_run(
@@ -3363,7 +3389,7 @@ def run_paths(card, smi):
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
     runs_extra, telemetry = [], None
     if has_telemetry():
-        log(f"[11/15] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
+        log(f"[11/16] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
             "(before phase 7): deep-traced staged batches, their stage "
             "spans, the export against the catalog")
         counts11, telemetry = drive(lambda: telemetry_phase(
@@ -3371,9 +3397,9 @@ def run_paths(card, smi):
             "telemetry")
         runs_extra.append(counts11)
     else:
-        log("[11/15] telemetry: this checkout has no obs package")
+        log("[11/16] telemetry: this checkout has no obs package")
 
-    log(f"[7/15] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/16] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -3389,7 +3415,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/15] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/16] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -3405,7 +3431,7 @@ def run_paths(card, smi):
     compare_tiers(sv32, sv8, "compacted")
     frontend = {}
     if has_frontend():
-        log(f"[12/15] front end: a Frontend in this process on each tier's "
+        log(f"[12/16] front end: a Frontend in this process on each tier's "
             f"compacted tenant, {FE_STREAMS} connections x {FE_REQUESTS} "
             f"requests of {FE_ROWS} rows, NaN rows, embed, a wire-loaded "
             "l1-qmc tenant (ingest, compaction under queries, unload), "
@@ -3421,7 +3447,7 @@ def run_paths(card, smi):
         frontend["frontend drain"] = drain_leg(sv32, card, smi)
         log(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[12/15] front end: this checkout has no network front end")
+        log("[12/16] front end: this checkout has no network front end")
     keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
             "self_hit_rate")
     paths = {
@@ -3443,11 +3469,11 @@ def run_paths(card, smi):
         counts9, paths["tenants"] = tenants_phase(card, smi)
         runs += counts9
     else:
-        log("[9/15] tenants: this checkout serves l2-basis only")
+        log("[9/16] tenants: this checkout serves l2-basis only")
     gc.collect()
     torch.cuda.empty_cache()
     if hasattr(ServableRegistry, "recover"):
-        log(f"[10/15] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
+        log(f"[10/16] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
             f"a snapshot and a warm standby, then {DURABLE_STEPS} steps; "
             "kill -9 at wal.append and at compact.swap in children, each "
             "recovered in a fresh child; fp32 then int8")
@@ -3459,11 +3485,11 @@ def run_paths(card, smi):
             runs.append(c)
         log(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[10/15] durability: this checkout has no WAL")
+        log("[10/16] durability: this checkout has no WAL")
     gc.collect()
     torch.cuda.empty_cache()
     if has_sharding():
-        log(f"[13/15] sharded path ({smi}): repro_torch.launch.serve on "
+        log(f"[13/16] sharded path ({smi}): repro_torch.launch.serve on "
             f"a {SHARD_RANKS}-rank serve mesh over the card, l2-basis at "
             f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, fp32 (auto "
             "replication) then int8: answers unreplicated, static:2 routed "
@@ -3477,11 +3503,11 @@ def run_paths(card, smi):
         paths.update(sharded)
         log(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[13/15] sharded path: this checkout has no serve mesh")
+        log("[13/16] sharded path: this checkout has no serve mesh")
     gc.collect()
     torch.cuda.empty_cache()
     if has_pod():
-        log(f"[14/15] pod index ({smi}): build, query and brute force on a "
+        log(f"[14/16] pod index ({smi}): build, query and brute force on a "
             f"{POD_MESH[0]} x {POD_MESH[1]} mesh of cuda:0 ranks against "
             "cpu ranks; then the paper's cell through launch.lsh_cell at "
             "16,777,216 items on a 16 x 2 mesh, and its kernels at its shapes")
@@ -3490,11 +3516,11 @@ def run_paths(card, smi):
         runs.append(counts14)
         log(f"  phase 14 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[14/15] pod index: this checkout has no pod index")
+        log("[14/16] pod index: this checkout has no pod index")
     gc.collect()
     torch.cuda.empty_cache()
     if has_lm():
-        log(f"[15/15] LM stack ({smi}): {LM_ARCH} smoke on the card against "
+        log(f"[15/16] LM stack ({smi}): {LM_ARCH} smoke on the card against "
             f"the CPU; then at full width {LM_TRAIN['steps']} train steps "
             f"(seq {LM_TRAIN['seq']}, batch {LM_TRAIN['batch']}, grad_accum "
             f"{LM_TRAIN['accum']}), launch.train --smoke stopped and resumed, "
@@ -3503,7 +3529,21 @@ def run_paths(card, smi):
         counts15, paths["lm"], _ = lm_phase(card, smi)
         runs.append(counts15)
     else:
-        log("[15/15] LM stack: this checkout has no LM stack")
+        log("[15/16] LM stack: this checkout has no LM stack")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if has_families():
+        log(f"[16/16] LM families ({smi}): {', '.join(FAMILIES)} smoke on the "
+            "card against the CPU; then at full width trained (seq "
+            f"{FAM_TRAIN['seq']}, batch {FAM_TRAIN['batch']}, grad_accum "
+            f"{FAM_TRAIN['accum']}, {FAM_TRAIN['steps']} steps) and served "
+            f"with the W2-LSH signature (batch {FAM_SERVE['batch']}, cache "
+            f"{FAM_SERVE['cache']})")
+        counts16, paths["families"], _ = families_phase(card, smi)
+        runs.append(counts16)
+    else:
+        log("[16/16] LM families: this checkout has no moe, ssm, hybrid or "
+            "enc-dec family")
     counts_all = {name: sum(c[name] for c in runs) for name in counts}
     return counts_all, paths
 
@@ -4274,7 +4314,7 @@ def tenants_phase(card, smi):
     from repro_torch.launch import w2_gate
     from repro_torch.serve import ServableRegistry
     names = ("l1-qmc", "w2-quantile")
-    log(f"[9/15] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+    log(f"[9/16] tenants: repro_torch.launch.serve, {', '.join(names)}, "
         f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
         "int8")
     params = {"mu": np.zeros(0), "sig": np.zeros(0)}
@@ -4692,40 +4732,58 @@ def signature_apart(what, got, want, proj, margin=1e-4):
     return int(near.sum())
 
 
-def lm_smoke_parity():
-    """Phase 15 (a): the llama3.2-3b smoke config in fp32 on the card
-    against the CPU on the same parameters: forward, one accumulated train
-    step's loss and gradients, 16 decode steps through the serve step
-    (logits, caches, signatures), the signature's K1 launch against its
-    plain version, and the tiny setup's 30-step loss decrease."""
-    import dataclasses
+def cache_leaves(cache, prefix=""):
+    """(name, tensor) of every leaf of a nested decode cache, in key
+    order."""
+    for key in sorted(cache):
+        leaf = cache[key]
+        if isinstance(leaf, dict):
+            yield from cache_leaves(leaf, f"{prefix}{key}.")
+        else:
+            yield prefix + key, leaf
 
+
+def smoke_batch(cfg, rng, b, s):
+    """Tokens (B, S) and, for the enc-dec, frames (B, frontend_len, d)."""
+    import torch
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                       dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor((rng.standard_normal(
+            (b, cfg.frontend_len, cfg.d_model)) * 0.1).astype(np.float32))
+    return batch
+
+
+def smoke_parity(cfg, seed, tag=""):
+    """Phase 15 (a) and 16 (a): ``cfg`` (a smoke config, fp32) on the card
+    against the CPU on the same parameters: forward, one accumulated train
+    step's loss (aux included) and gradients, 16 decode steps through the
+    serve step (logits, every cache leaf, signatures; the enc-dec's cross
+    cache filled first), and the signature's K1 launch against its plain
+    version."""
     import torch
     from repro_torch import convert
-    from repro_torch.configs import smoke_config
     from repro_torch.core import wasserstein
-    from repro_torch.data.pipeline import BigramLM
     from repro_torch.kernels import hash_mm, ref
-    from repro_torch.models import get_model
-    from repro_torch.optim import adamw
     from repro_torch.runtime import steps as rt
-    cfg = dataclasses.replace(smoke_config(LM_ARCH), grad_accum=4)
     api, cpu, card = lm_pair(cfg)
-    rng = np.random.default_rng(15)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 64)),
-                           dtype=torch.int32)
+    rng = np.random.default_rng(seed)
+    batch = smoke_batch(cfg, rng, 8, 64)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
     out = {}
     with torch.no_grad():
-        want, _ = api.forward(cpu, {"tokens": toks})
-        got, _ = api.forward(card, {"tokens": toks.cuda()})
-    out["forward_max_abs_err"] = close("forward", got, want, 1e-4, 1e-4)
+        want, waux = api.forward(cpu, batch)
+        got, gaux = api.forward(card, gbatch)
+    out["forward_max_abs_err"] = close(f"{tag}forward", got, want, 1e-4, 1e-4)
+    close(f"{tag}forward aux", gaux, waux, 1e-4, 1e-5)
     loss_fn = rt.make_loss_fn(api, cfg)
-    lc, _ = rt.accumulate_grads(loss_fn, cpu, {"tokens": toks}, 4)
-    lg, _ = rt.accumulate_grads(loss_fn, card, {"tokens": toks.cuda()}, 4)
+    lc, mc = rt.accumulate_grads(loss_fn, cpu, batch, cfg.grad_accum)
+    lg, mg = rt.accumulate_grads(loss_fn, card, gbatch, cfg.grad_accum)
     out["loss_cpu"], out["loss_card"] = float(lc), float(lg)
-    close("train loss", lg, lc, 1e-4, 1e-5)
+    close(f"{tag}train loss", lg, lc, 1e-4, 1e-5)
+    close(f"{tag}train aux", mg["aux"], mc["aux"], 1e-4, 1e-5)
     out["grad_max_abs_err"] = max(
-        close(f"grad {n}", p.grad, q.grad, 1e-4, 1e-5)
+        close(f"{tag}grad {n}", p.grad, q.grad, 1e-4, 1e-5)
         for (n, p), (_, q) in zip(card.named_parameters(),
                                   cpu.named_parameters()))
     for m in (cpu, card):
@@ -4736,12 +4794,16 @@ def lm_smoke_parity():
         lsh_cpu.b, lsh_cpu.r, device="cuda")
     serves = [rt.make_serve_step(api, cfg, lsh) for lsh in (lsh_cpu, lsh_card)]
     caches = [api.init_cache(8, 16, device=d) for d in ("cpu", "cuda")]
-    tok = toks[:, :1]
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            api.fill_cross_cache(cpu, caches[0], batch["frames"])
+            api.fill_cross_cache(card, caches[1], gbatch["frames"])
+    tok = batch["tokens"][:, :1]
     dec_err, boundary, k1, compared = 0.0, 0, 0.0, 0
     for pos in range(16):
         oc, caches[0] = serves[0](cpu, caches[0], tok, pos)
         og, caches[1] = serves[1](card, caches[1], tok.cuda(), pos)
-        dec_err = max(dec_err, close(f"decode step {pos}", og["logits"],
+        dec_err = max(dec_err, close(f"{tag}decode step {pos}", og["logits"],
                                      oc["logits"], 1e-4, 1e-4))
         emb_c = wasserstein.w2_embedding_logits(
             oc["logits"][:, 0], lsh_cpu.support, lsh_cpu.nodes,
@@ -4753,7 +4815,7 @@ def lm_smoke_parity():
         compared += int(rows.sum())
         _, proj = ref.hash_mm_proj_ref(emb_c, lsh_cpu.alpha, lsh_cpu.b,
                                        lsh_cpu.r)
-        boundary += signature_apart(f"decode step {pos} signature",
+        boundary += signature_apart(f"{tag}decode step {pos} signature",
                                     og["lsh_sig"][rows.cuda()],
                                     oc["lsh_sig"][rows], proj[rows])
         # K1 at the signature's launch against its plain version on the card
@@ -4761,19 +4823,37 @@ def lm_smoke_parity():
                                lsh_card.b, lsh_card.r)
         hp, pp = ref.hash_mm_proj_ref(emb_g, lsh_card.alpha, lsh_card.b,
                                       lsh_card.r)
-        k1 = max(k1, close("signature K1 projections", p, pp.cpu(),
-                                  1e-6, 1e-5))
-        boundary += signature_apart("signature K1", h, hp, pp)
+        k1 = max(k1, close(f"{tag}signature K1 projections", p, pp.cpu(),
+                           1e-6, 1e-5))
+        boundary += signature_apart(f"{tag}signature K1", h, hp, pp)
         tok = oc["next"]
     out["decode_max_abs_err"] = dec_err
-    for key in ("k", "v"):
-        close(f"cache {key}", caches[1][key], caches[0][key], 1e-4, 1e-4)
+    for (key, a), (_, b) in zip(cache_leaves(caches[1]),
+                                cache_leaves(caches[0])):
+        close(f"{tag}cache {key}", a, b, 1e-4, 1e-4)
     if compared < 16 * 8 - 8:
-        raise AssertionError(f"lm: only {compared} of 128 decode rows embed "
-                             "alike on both devices")
+        raise AssertionError(f"lm {tag}: only {compared} of 128 decode rows "
+                             "embed alike on both devices")
     out["signature_rows_compared"] = compared
     out["signature_boundary_values"] = boundary
     out["signature_k1_max_abs_err"] = k1
+    return out
+
+
+def lm_smoke_parity():
+    """Phase 15 (a): the llama3.2-3b smoke config in fp32 on the card
+    against the CPU on the same parameters (:func:`smoke_parity`), and the
+    tiny setup's 30-step loss decrease."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import BigramLM
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rt
+    out = smoke_parity(dataclasses.replace(smoke_config(LM_ARCH),
+                                           grad_accum=4), 15)
 
     # the tiny setup of tests/test_train.py: 30 steps on the card
     tiny = dataclasses.replace(smoke_config(LM_ARCH), n_layers=2,
@@ -5094,6 +5174,282 @@ def lm_phase(card, smi):
     return counts, line, k1
 
 
+# -- phase 16: the rest of the LM families ----------------------------------
+
+
+FAMILIES = ("qwen2-moe-a2.7b", "arctic-480b", "mamba2-2.7b",
+            "recurrentgemma-2b", "seamless-m4t-medium")
+FAM_TRAIN = dict(seq=2048, batch=4, accum=4, steps=3)     # (b), phase 15's
+FAM_SERVE = dict(batch=8, cache=2048, prompt=8, steps=16, frames=1024)
+# (b) and (c) at full width; depth cut where one card cannot hold it
+FAM_TRAIN_CUTS = {"qwen2-moe-a2.7b": (4, "n_layers 24 -> 4: 9.7 GB a layer of "
+                                         "fp32 params, grads, m and v, the "
+                                         "untied embeddings 10.0 GB; full "
+                                         "depth ~242 GB")}
+FAM_SERVE_CUTS = {"arctic-480b": (2, "n_layers 35 -> 2: ~27 GB a layer of "
+                                     "bf16 weights; full depth ~940 GB")}
+FAM_TRAINED = ("qwen2-moe-a2.7b", "mamba2-2.7b", "recurrentgemma-2b",
+               "seamless-m4t-medium")
+
+
+def has_families() -> bool:
+    """Does this checkout build every family of the LM stack?"""
+    return (ROOT / "src" / "repro_torch" / "models" / "moe.py").is_file()
+
+
+def families_parity():
+    """Phase 16 (a): each family's smoke config on the card against the
+    CPU (:func:`smoke_parity`); mamba2 also trains a step at its config's
+    SSD chunk of 256, whose gradients must be finite and agree."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.runtime import steps as rt
+    out = {}
+    for i, arch in enumerate(FAMILIES):
+        cfg = dataclasses.replace(smoke_config(arch), grad_accum=4)
+        out[arch] = smoke_parity(cfg, 160 + i, tag=f"{arch} ")
+    cfg = dataclasses.replace(smoke_config("mamba2-2.7b"), ssm_chunk=256)
+    api, cpu, card = lm_pair(cfg)
+    batch = smoke_batch(cfg, np.random.default_rng(169), 1, 256)
+    loss_fn = rt.make_loss_fn(api, cfg)
+    lc, _ = rt.accumulate_grads(loss_fn, cpu, batch, 1)
+    lg, _ = rt.accumulate_grads(loss_fn, card, {k: v.cuda()
+                                                for k, v in batch.items()}, 1)
+    close("mamba2 chunk 256 loss", lg, lc, 1e-4, 1e-5)
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in card.parameters())
+    if not finite:
+        raise AssertionError("lm mamba2 chunk 256: non-finite gradients")
+    out["mamba2_chunk256"] = {
+        "loss": float(lg), "grads_finite": finite,
+        "grad_max_abs_err": max(
+            close(f"mamba2 chunk 256 grad {n}", p.grad, q.grad, 1e-4, 1e-5)
+            for (n, p), (_, q) in zip(card.named_parameters(),
+                                      cpu.named_parameters()))}
+    return out
+
+
+def family_config(arch, cuts):
+    """The arch's own config, its depth cut where ``cuts`` says: (cfg, the
+    cut's text or None)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch not in cuts:
+        return cfg, None
+    n, why = cuts[arch]
+    return dataclasses.replace(cfg, n_layers=n), why
+
+
+def family_train(api, model):
+    """Phase 16 (b): ``FAM_TRAIN["steps"]`` steps of ``make_train_step`` at
+    seq 2,048 x global batch 4, grad_accum 4, on the synthetic stream (the
+    enc-dec's frames one a token)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch import roofline
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rt
+    tr = FAM_TRAIN
+    cfg = dataclasses.replace(api.cfg, grad_accum=tr["accum"])
+    ocfg = adamw.OptConfig(warmup_steps=1, total_steps=tr["steps"])
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    step = rt.make_train_step(api, cfg, ocfg)
+    pipe = SyntheticPipeline(cfg, ShapeConfig("train", tr["seq"], tr["batch"],
+                                              "train"), seed=0)
+    times, losses, gnorms = [], [], []
+    for i in range(tr["steps"]):
+        batch = {k: torch.as_tensor(v).cuda()
+                 for k, v in pipe.get_batch(i).items()}
+        ms, (_, opt, m) = cuda_ms(lambda: step(model, opt, batch))
+        times.append(ms)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        log(f"  lm {cfg.name} train step {i}: {ms:.1f} ms, loss "
+            f"{losses[-1]:.4f}, grad norm {gnorms[-1]:.4f}")
+    del opt
+    non_finite = sum(not (np.isfinite(a) and np.isfinite(b))
+                     for a, b in zip(losses, gnorms))
+    if non_finite:
+        raise AssertionError(f"lm {cfg.name} train: {non_finite} non-finite "
+                             f"steps: losses {losses}, grad norms {gnorms}")
+    step_s = statistics.median(times[1:]) / 1e3
+    tokens = tr["batch"] * tr["seq"]
+    flops = roofline.model_flops("train", cfg.active_param_count(),
+                                 tr["batch"], tr["seq"])
+    return {"params_allocated": sum(p.numel() for p in model.parameters()),
+            "active_params": cfg.active_param_count(), **tr,
+            "remat": cfg.remat, "dtype": cfg.dtype,
+            "param_dtype": cfg.param_dtype,
+            "step_ms": step_s * 1e3, "step_ms_all": times,
+            "tokens_per_s": tokens / step_s, "model_flops": flops,
+            "mfu": flops / step_s / roofline.BF16_TENSOR_OPS_PER_S,
+            "non_finite_steps": non_finite, "losses": losses,
+            "grad_norms": gnorms}
+
+
+def family_serve(api, model, arch_seed):
+    """Phase 16 (c) and (d): the serve step with the W^2-LSH signature at
+    batch 8, cache 2,048: rows 0-2 one prompt (and, for the enc-dec, one
+    set of 1,024 frames, encoded into the cross cache first), rows 3-4
+    another, ``FAM_SERVE["prompt"]`` prompt tokens then greedy, 16 steps in
+    all; rows 0-2 must share every signature and K1 must launch once a
+    step.  Then one decode step profiled."""
+    import torch
+    from repro_torch.core import wasserstein
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import roofline
+    from repro_torch.runtime import steps as rt
+    sv = FAM_SERVE
+    cfg = api.cfg
+    lsh = rt.LshServeParams.create(torch.Generator(device="cuda")
+                                   .manual_seed(1), cfg)
+    serve = rt.make_serve_step(api, cfg, lsh)
+    b, t = sv["batch"], sv["steps"]
+    rng = np.random.default_rng(arch_seed)
+    prompts = rng.integers(0, cfg.vocab_size, (b, sv["prompt"]))
+    prompts[1:3] = prompts[0]
+    prompts[4] = prompts[3]
+    prompts = torch.as_tensor(prompts, dtype=torch.int32).cuda()
+    extra = {}
+    if cfg.family == "encdec":
+        frames = (rng.standard_normal((b, sv["frames"], cfg.d_model))
+                  * 0.1).astype(np.float32)
+        frames[1:3] = frames[0]
+        frames[4] = frames[3]
+        extra["enc_len"] = sv["frames"]
+    cache = api.init_cache(b, sv["cache"], device="cuda", **extra)
+    fill_ms = None
+    if cfg.family == "encdec":
+        fill_ms, _ = cuda_ms(lambda: api.fill_cross_cache(
+            model, cache, torch.as_tensor(frames).cuda()))
+    k1_before = dispatch.launches["hash_mm"]
+    sigs, times = [], []
+    tok = prompts[:, :1]
+    for pos in range(t):
+        ms, (out, cache) = cuda_ms(lambda: serve(model, cache, tok, pos))
+        times.append(ms)
+        if not bool(torch.isfinite(out["logits"]).all()):
+            raise AssertionError(f"lm {cfg.name} serve: non-finite logits "
+                                 f"at step {pos}")
+        sigs.append(out["lsh_sig"])
+        tok = (prompts[:, pos + 1:pos + 2] if pos + 1 < sv["prompt"]
+               else out["next"])
+    k1 = dispatch.launches["hash_mm"] - k1_before
+    if k1 != t:
+        raise AssertionError(f"lm {cfg.name} serve: K1 launched {k1} times "
+                             f"in {t} steps")
+    sigs = torch.stack(sigs, dim=1).cpu().numpy()        # (B, T, K)
+    groups, shared_34 = [], 0
+    for pos in range(t):
+        rows = [tuple(r) for r in sigs[:, pos]]
+        groups.append(len(set(rows)))
+        if not rows[0] == rows[1] == rows[2]:
+            raise AssertionError(f"lm {cfg.name} serve: rows 0-2 signatures "
+                                 f"differ at step {pos}")
+        shared_34 += rows[3] == rows[4]
+    step_s = statistics.median(times[1:]) / 1e3
+    prof = lm_profile(lambda: serve(model, cache, tok, t))
+    cache_bytes = sum(c.numel() * c.element_size()
+                      for _, c in cache_leaves(cache))
+    nbytes = sum(p.numel() * p.element_size()
+                 for p in model.parameters()) + cache_bytes
+    bound_s, by = roofline.bound_by(nbytes, roofline.model_flops(
+        "decode", cfg.active_param_count(), b, 1),
+        roofline.BF16_TENSOR_OPS_PER_S)
+    emb = wasserstein.w2_embedding_logits(
+        out["logits"][:, 0], lsh.support, lsh.nodes, lsh.volume).contiguous()
+    return {"batch": b, "cache_len": sv["cache"], "steps": t,
+            "params_allocated": sum(p.numel() for p in model.parameters()),
+            "param_dtype": cfg.param_dtype,
+            "decode_ms": step_s * 1e3, "tokens_per_s": b / step_s,
+            "decode_ms_first": times[0], "bound_ms": bound_s * 1e3,
+            "bound_by": by, "bound_bytes": nbytes, "cache_bytes": cache_bytes,
+            "fill_cross_cache_ms": fill_ms, "k1_launches": k1,
+            "dedup_groups": groups, "rows_3_4_shared_steps": shared_34,
+            "profile": prof,
+            "kernel_share_of_step": kernel_share(prof, step_s * 1e3)
+            }, lsh, emb
+
+
+def families_phase(card, smi):
+    """Phase 16 (see the module docstring).  Returns (launch counts of the
+    serve runs (c), the numbers, the signature's K1 record)."""
+    import gc
+    import threading
+
+    import torch
+    from repro_torch.models import get_model
+    t0 = time.perf_counter()
+    tag = f"[{card}, {smi.split(',')[-1].strip()}]"
+    line = {"card": smi, "parity": families_parity()}
+    log(f"  lm families (a) {json.dumps(line['parity'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, served, kept = {}, {}, {}
+
+    def fresh(cfg):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        api = get_model(cfg)
+        ms, model = cuda_ms(lambda: api.init(
+            torch.Generator(device="cuda").manual_seed(0)))
+        return api, model, ms
+
+    def serve_all():
+        for i, arch in enumerate(FAMILIES):
+            model = None
+            if arch in FAM_TRAINED:
+                cfg, cut = family_config(arch, FAM_TRAIN_CUTS)
+                api, model, init_ms = fresh(cfg)
+                res = family_train(api, model)
+                res.update(arch=arch, cut=cut, init_ms=init_ms,
+                           max_memory_allocated=torch.cuda
+                           .max_memory_allocated())
+                train[arch] = res
+                log(f"  {tag} lm {arch} train " + json.dumps(res))
+                if cut is not None:     # serve the uncut config
+                    del api, model
+                    model = None
+            cfg, cut = family_config(arch, FAM_SERVE_CUTS)
+            if model is None:
+                api, model, init_ms = fresh(cfg)
+            else:
+                init_ms = None
+                torch.cuda.reset_peak_memory_stats()
+            res, lsh, emb = family_serve(api, model, 1600 + i)
+            res.update(arch=arch, cut=cut, init_ms=init_ms,
+                       max_memory_allocated=torch.cuda.max_memory_allocated())
+            served[arch] = res
+            kept.update(lsh=lsh, emb=emb)
+            log(f"  {tag} lm {arch} serve " + json.dumps(res))
+            del api, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        return served
+
+    counts, _ = drive(serve_all, card, smi, ("hash_mm",), "lm families")
+    k1 = lm_k1_record(kept["lsh"], kept["emb"])
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    line.update(train=train, serve=served, launches=counts, k1_signature=k1,
+                cuts={"train": {a: c[1] for a, c in FAM_TRAIN_CUTS.items()},
+                      "serve": {a: c[1] for a, c in FAM_SERVE_CUTS.items()}},
+                host_threads=threading.active_count(),
+                wall_s=time.perf_counter() - t0)
+    log(f"  phase 16 wall {line['wall_s']:.1f}s, {line['host_threads']} host "
+        "threads")
+    return counts, line, k1
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -5106,12 +5462,13 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2 and 6-15 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-16 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
                     "the telemetry, the compactions, the front end, the "
                     "l1-qmc and "
                     "w2-quantile tenants, durability, the sharded path "
-                    "the pod index and the LM stack, then one JSON "
+                    "the pod index, the LM stack and its families, then one "
+                    "JSON "
                     "line of profiles and reports; to profile another "
                     "checkout, copy this script to its root")
     ap.add_argument("--pod-only", action="store_true",
@@ -5122,6 +5479,10 @@ def main(argv=None) -> int:
                     help="phases 1, 2 and 15 only: build, then the LM "
                     "stack against the CPU and at full width, then one JSON "
                     "line of its numbers")
+    ap.add_argument("--families-only", action="store_true",
+                    help="phases 1, 2 and 16 only: build, then the moe, ssm, "
+                    "hybrid and enc-dec families against the CPU and at full "
+                    "width, then one JSON line of their numbers")
     ap.add_argument("--durable-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire-client", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5142,14 +5503,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/15] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/16] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/15] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/16] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -5158,16 +5519,22 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(0)
     if args.pod_only:
-        log(f"[14/15] pod index ({smi}), alone")
+        log(f"[14/16] pod index ({smi}), alone")
         counts14, pod = pod_phase(card, smi)
         print(smi)
         print(json.dumps({"pod": pod}))
         return 0
     if args.lm_only:
-        log(f"[15/15] LM stack ({smi}), alone")
+        log(f"[15/16] LM stack ({smi}), alone")
         lm = lm_phase(card, smi)[1]
         print(smi)
         print(json.dumps({"lm": lm}))
+        return 0
+    if args.families_only:
+        log(f"[16/16] LM families ({smi}), alone")
+        families = families_phase(card, smi)[1]
+        print(smi)
+        print(json.dumps({"families": families}))
         return 0
     if args.paths_only:
         paths = run_paths(card, smi)[1]
@@ -5175,17 +5542,17 @@ def main(argv=None) -> int:
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/15] CPU (plain versions) vs card (kernels) parity")
+        log("[4/16] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
         k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
-        log(f"[5/15] timings, {smi}")
+        log(f"[5/16] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/15] kernel checks against the plain versions on the card: "
+    log("[3/16] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
         "saturated / infinite / NaN projections bit-equal, and with a "
@@ -5310,7 +5677,7 @@ def main(argv=None) -> int:
     check_nan_queries()
     check_query_batched()
 
-    log("[4/15] CPU (plain versions) vs card (kernels) parity")
+    log("[4/16] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
     k2_p1_inputs = None
@@ -5318,7 +5685,7 @@ def main(argv=None) -> int:
         k2_p1_inputs = parity_run("l1-qmc")
         parity_run("w2-quantile")
 
-    log("[5/15] timings (median of CUDA events over "
+    log("[5/16] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn, k2_p1_inputs)
@@ -5345,6 +5712,17 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/csrc/hash_mm.cu",
             "replaces": REPLACES["hash_mm"],
             "launches": paths["lm"]["serve"]["launches"]["hash_mm"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    if "families" in paths:
+        # K1 at the other families' serve-step signatures (phase 16 (c))
+        t = paths["families"]["k1_signature"]
+        kernels.append({
+            "name": "hash_mm@lm_families", "route": "cuda",
+            "source": "src/repro_torch/csrc/hash_mm.cu",
+            "replaces": REPLACES["hash_mm"],
+            "launches": paths["families"]["launches"]["hash_mm"],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -155,19 +155,22 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _lm_path(name: str):
-    """A parameter's module name -> (path in the JAX tree, layer index or
-    None): ``layers.3.attn.wq`` -> (("layers", "attn", "wq"), 3),
-    ``embed.tok`` -> (("embed", "tok"), None)."""
+    """A parameter's module name -> (path in the JAX tree, index on the
+    stack's leading axis or None): ``layers.3.attn.wq`` -> (("layers",
+    "attn", "wq"), 3), ``groups.1.rg2.rg.lam`` -> (("groups", "rg2", "rg",
+    "lam"), 1), ``embed.tok`` -> (("embed", "tok"), None).  The stacks are
+    the families' ``layers``, the hybrid's ``groups`` and ``tail``, and the
+    enc-dec's ``enc`` and ``dec``."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return ("layers",) + tuple(parts[2:]), int(parts[1])
+    if len(parts) > 2 and parts[1].isdigit():
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
     return tuple(parts), None
 
 
 def lm_params_from_numpy(model, tree) -> None:
-    """Load the JAX ``api.init`` tree ``tree`` (numpy leaves; the layers'
-    leaves stacked on a leading L axis) into ``model`` (a
-    ``models.model.Transformer``), one block per slice, each leaf in the
+    """Load the JAX ``api.init`` tree ``tree`` (numpy leaves; each stack's
+    leaves on a leading axis) into ``model`` (a family module of
+    ``models.model``), one block per slice, each leaf in the
     parameter's own dtype and device."""
     with torch.no_grad():
         for name, p in model.named_parameters():

@@ -8,7 +8,7 @@ offline.
 The port's own copy of ``repro/data/pipeline.py``, numpy only: the same
 seed gives the same batches as its process 0, bit for bit.  The port has
 no sharded step yet, so it keeps neither the per-host slicing nor the
-background prefetch thread, nor the enc-dec ``frames``.
+background prefetch thread.
 """
 
 from __future__ import annotations
@@ -55,6 +55,9 @@ class SyntheticPipeline:
         rng = np.random.default_rng((self.seed * 1_000_003 + step) * 65_537)
         b, s = max(self.shape.global_batch, 1), self.shape.seq_len
         batch = {"tokens": self.lm.sample(rng, b, s)}
+        if self.cfg.family == "encdec":   # the audio stub's frames, one a token
+            batch["frames"] = rng.standard_normal(
+                (b, s, self.cfg.d_model)).astype(np.float32) * 0.1
         if self.cfg.modality == "vision":
             batch["patches"] = rng.standard_normal(
                 (b, self.cfg.frontend_len, self.cfg.d_model)

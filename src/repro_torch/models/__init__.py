@@ -1,2 +1,3 @@
-"""Config-driven model substrate: the dense and vlm transformer families."""
+"""Config-driven model substrate: every family of the ten configs (dense,
+vlm, moe, ssm, hybrid, encdec)."""
 from .model import ModelApi, get_model

@@ -16,12 +16,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
+from repro.models import get_model as jget_model  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, smoke_config  # noqa: E402
 from repro_torch.models import common, get_model  # noqa: E402
 
 
@@ -204,15 +206,20 @@ def test_decode_attention_matches_jax_with_padded_heads(window):
         np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-6)
 
 
-def test_lm_params_round_trip():
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_params_round_trip(arch):
     """convert.lm_params_to_numpy inverts lm_params_from_numpy, bf16
-    leaves included (as their uint16 bits)."""
-    cfg = dataclasses.replace(smoke_config("llama3.2-3b"),
-                              param_dtype="bfloat16")
+    leaves included (as their uint16 bits), for every family; the tree has
+    the JAX ``api.init`` tree's paths and shapes."""
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype="bfloat16")
     m1 = get_model(cfg).init(torch.Generator().manual_seed(0))
     m2 = get_model(cfg).init(torch.Generator().manual_seed(1))
     tree = convert.lm_params_to_numpy(m1)
-    assert tree["layers"]["attn"]["wq"].shape[0] == cfg.n_layers
+    jcfg = dataclasses.replace(jsmoke_config(arch), param_dtype="bfloat16")
+    want = jax.eval_shape(jget_model(jcfg).init, jax.random.PRNGKey(0))
+    assert jax.tree.structure(want) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(tree)):
+        assert tuple(a.shape) == b.shape
     assert tree["embed"]["tok"].dtype == np.uint16
     convert.lm_params_from_numpy(m2, jax_bf16(tree))
     for (n, a), (_, b) in zip(m1.named_parameters(), m2.named_parameters()):

@@ -1,13 +1,18 @@
-"""The port's LM configs and dense / vlm transformer against the JAX
+"""The port's LM configs and models, every family, against the JAX
 package's (``repro.configs``, ``repro.models``).
 
 Parameters come from the JAX ``api.init`` through
-``convert.lm_params_from_numpy``; tokens and patches are numpy draws from
-fixed seeds.  Tolerances: forward logits rtol 1e-4 atol 1e-5 (fp32, 4
-layers: matmuls that sum in another order); decode logits the same, its
-caches atol 1e-5; decode against the teacher-forced forward at the JAX
+``convert.lm_params_from_numpy``; tokens, patches and frames are numpy
+draws from fixed seeds.  Tolerances: forward logits rtol 1e-4 atol 1e-5
+(fp32, 4 layers: matmuls that sum in another order); decode logits the
+same, its caches (every leaf: K/V, ring buffers, conv windows) atol
+1e-5, the recurrent states (mamba2's ``ssm``, the RG-LRU's ``h``, sums of
+32 steps' updates) rtol 1e-4 atol 1e-5; decode against the teacher-forced forward at the JAX
 test's bar (``tests/test_models.py:47``, 2e-2 x scale); padded heads 1e-5
-(``tests/test_models.py:100``).
+(``tests/test_models.py:100``).  The enc-dec decode reads cross K/V that
+the JAX package cannot fill (it has no ``fill_cross_cache``), so its
+cache is filled here from ``encode`` and the cross projections, as its
+forward computes them.
 """
 
 import dataclasses
@@ -24,8 +29,6 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import get_model as jget_model  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-
-DENSE = ("llama3.2-3b", "glm4-9b", "internlm2-20b", "qwen2-vl-2b")
 
 
 def _pair(arch, **changes):
@@ -44,6 +47,9 @@ def _batch(cfg, seed, b=2, s=32):
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))
              .astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = (rng.standard_normal(
+            (b, cfg.frontend_len, cfg.d_model)) * 0.1).astype(np.float32)
     if cfg.modality == "vision":
         batch["patches"] = (rng.standard_normal(
             (b, cfg.frontend_len, cfg.d_model)) * 0.1).astype(np.float32)
@@ -67,30 +73,58 @@ def test_configs_equal_the_jax_package(arch):
         {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_forward_matches_jax(arch):
     japi, params, api, model = _pair(arch)
     batch = _batch(api.cfg, 1)
-    want, _ = japi.forward(params, jax.tree.map(jnp.asarray, batch))
+    want, jaux = japi.forward(params, jax.tree.map(jnp.asarray, batch))
     with torch.no_grad():
         got, aux = api.forward(model, {k: torch.as_tensor(v)
                                        for k, v in batch.items()})
     s_out = 32 + (api.cfg.frontend_len if api.cfg.modality == "vision"
                   else 0)
     assert got.shape == (2, s_out, api.cfg.v_eff)
-    assert float(aux) == 0.0
+    if api.cfg.family == "moe":
+        assert float(aux) > 0.0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    else:
+        assert float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def fill_jax_cross_cache(japi, params, jcache, frames):
+    """The enc-dec cross K/V in a JAX cache, as its forward's ``_mem_kv``
+    computes them from ``encode``."""
+    mem = japi.encode(params, jnp.asarray(frames))
+    cross = params["dec"]["cross"]
+    return dict(jcache,
+                ck=jnp.einsum("bsd,ldhk->lbshk", mem, cross["wk"]),
+                cv=jnp.einsum("bsd,ldhk->lbshk", mem, cross["wv"]))
+
+
+def cache_leaves(cache):
+    """A cache's (key, leaf) pairs in the JAX tree's order, as numpy."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(jax.tree.map(
+        lambda t: t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t),
+        cache))
+    return [(path[-1].key, leaf) for path, leaf in flat]
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_decode_matches_jax(arch):
-    """32 decode steps: logits and both caches against the JAX package's
-    at every step."""
+    """32 decode steps: logits and every cache leaf against the JAX
+    package's at every step."""
     japi, params, api, model = _pair(arch)
-    toks = _batch(api.cfg, 2)["tokens"]
+    batch = _batch(api.cfg, 2)
+    toks = batch["tokens"]
     jcache = japi.init_cache(2, 32)
     cache = api.init_cache(2, 32, device="cpu")
+    if api.cfg.family == "encdec":
+        jcache = fill_jax_cross_cache(japi, params, jcache, batch["frames"])
+        with torch.no_grad():
+            api.fill_cross_cache(model, cache,
+                                 torch.as_tensor(batch["frames"]))
     dec = jax.jit(japi.decode_step)
     for t in range(32):
         want, jcache = dec(params, jcache, jnp.asarray(toks[:, t:t + 1]),
@@ -100,9 +134,14 @@ def test_decode_matches_jax(arch):
                                          torch.as_tensor(toks[:, t:t + 1]), t)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-5, err_msg=f"step {t}")
-    for key in ("k", "v"):
-        np.testing.assert_allclose(cache[key].numpy(),
-                                   np.asarray(jcache[key]), atol=1e-5)
+    assert jax.tree.structure(jax.tree.map(np.asarray, jcache)) == \
+        jax.tree.structure(jax.tree.map(lambda t: t.numpy(), cache))
+    for (key, a), (_, b) in zip(cache_leaves(cache), cache_leaves(jcache)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        # the recurrent states sum 32 steps' updates: rtol as the logits
+        np.testing.assert_allclose(a, b, atol=1e-5,
+                                   rtol=1e-4 if key in ("ssm", "h") else 1e-7,
+                                   err_msg=key)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "glm4-9b", "internlm2-20b"])
@@ -151,17 +190,9 @@ def test_padded_heads_masked():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "arctic-480b",
-                                  "mamba2-2.7b", "recurrentgemma-2b",
-                                  "seamless-m4t-medium"])
-def test_unported_families_raise(arch):
-    cfg = configs.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg)
-
-
-def test_cache_defaults_to_the_card():
-    api = get_model(configs.smoke_config("llama3.2-3b"))
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_cache_defaults_to_the_card(arch):
+    api = get_model(configs.smoke_config(arch))
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the cache would go there")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -172,7 +203,8 @@ def test_param_counts_match_names():
     """The JAX test's analytic counts, and the module's allocated count:
     the analytic count plus the padded heads' rows of wq and wo."""
     expect = {"llama3.2-3b": 3.2e9, "glm4-9b": 9.4e9, "internlm2-20b": 19.9e9,
-              "mistral-large-123b": 122.6e9}
+              "mistral-large-123b": 122.6e9, "mamba2-2.7b": 2.7e9,
+              "arctic-480b": 477e9, "qwen2-moe-a2.7b": 14.3e9}
     for k, v in expect.items():
         n = configs.get_config(k).param_count()
         assert abs(n - v) / v < 0.02, (k, n)

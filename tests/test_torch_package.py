@@ -219,6 +219,8 @@ def test_the_lm_stack_is_covered():
     lm = {"repro_torch.configs", "repro_torch.configs.base",
           "repro_torch.configs.registry", "repro_torch.models",
           "repro_torch.models.common", "repro_torch.models.model",
+          "repro_torch.models.moe", "repro_torch.models.ssm",
+          "repro_torch.models.rglru",
           "repro_torch.optim", "repro_torch.optim.adamw",
           "repro_torch.runtime", "repro_torch.runtime.steps",
           "repro_torch.runtime.driver", "repro_torch.data",
