@@ -230,14 +230,46 @@ each of which raises on failure (the script then exits non-zero):
    family profiled as in phase 15.  Every cut is listed in the phase's
    line.  One ``lm families (a)`` line, one ``train`` line per trained and
    one ``serve`` line per served config.
+17. training on a mesh, last: (a) the smoke configs of llama3.2-3b,
+   qwen2-moe-a2.7b and internlm2-20b (its ``fsdp_params`` on) in fp32,
+   trained 2 steps of 4 micro-batches by ``shard_train_step`` on a (2, 4)
+   mesh of ``cuda:0`` ranks, against the same on ``cpu`` ranks and the
+   unsharded ``make_train_step`` on the card at phase 15 (a)'s bars: loss,
+   aux and grad norm, every updated parameter and moment, each rank's block
+   equal to its slice of the gathered tensor; then 16 decode steps of
+   ``shard_serve_step`` (the cache's blocks gathered, decoded and
+   scattered back) against
+   ``make_serve_step`` on the card: logits, every cache leaf, signatures,
+   and K1 against its plain version; (b) llama3.2-3b at full width on the
+   (2, 4) mesh, its depth cut as far as the card forces (the cut is in the
+   line): 3 sharded steps at seq 2,048, global batch 4, grad_accum 4 (step
+   ms, ``mfu``, peak memory, 0 non-finite steps), each rank's parameter and
+   moment bytes equal to the dry run's prediction to the byte; then at full
+   depth its sharded serve step, batch 8, cache 2,048, 16 steps (8 prompt
+   tokens, rows 0-2 one prompt, rows 3-4 another, then greedy), launch
+   counts read around it (K1 once a step), rows 0-2 sharing every
+   signature, and the unsharded serve step fed the same tokens beside it
+   (decode ms, the logits' largest difference over their scale); one
+   sharded train step and one sharded decode step profiled as in phase
+   15; (c) a
+   checkpoint of sharded parameters saved from (2, 4) and restored onto
+   (4, 2), every block bit-equal on its new rank, then ``launch.train
+   --smoke --mesh-devices 8`` on the card to 20 steps and again to 30,
+   which must resume from 20; (d) ``ef_compress`` and ``compressed_psum``
+   over 8 ranks on the card against the CPU, codes and scales bit-equal;
+   (e) the dry run over every (arch x shape) cell of the production 16 x
+   16 mesh on ``meta``, its fits table printed.  One ``mesh`` line per
+   part.
 
-Launch counts are read around each of phases 6-13, phase 15 (c) and phase
-16 (b)-(d); in phase 14 they are the cell's own count of its embed and
-three timed calls (its warm-ups, profiled query and work count left out).
+Launch counts are read around each of phases 6-13, phase 15 (c), phase
+16 (b)-(d) and phase 17 (b)'s sharded serve; in phase 14 they are the
+cell's own count of its embed and three timed calls (its warm-ups,
+profiled query and work count left out).
 
 The last lines are the card's name and power limit, one JSON object with
-a record per kernel (K1 three times: at the index's shape and at the LM
-signatures of phases 15 and 16), and ``{"ok": true, "device": {...}}``.
+a record per kernel (K1 four times: at the index's shape and at the LM
+signatures of phases 15, 16 and 17), and ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py --timings-only
 
@@ -246,7 +278,7 @@ object of timing records, and
 
     python3 chip_smoke.py --paths-only
 
-runs phases 1, 2 and 6-16 and ends with the card's line and one JSON
+runs phases 1, 2 and 6-17 and ends with the card's line and one JSON
 object of the paths' profiles and reports.  Copied to the root of another
 checkout (an earlier commit, say), either times or profiles that
 checkout's kernels on the same inputs, so two versions can be compared in
@@ -255,8 +287,8 @@ turns within one machine.
     python3 chip_smoke.py --pod-only
 
 runs phases 1, 2 and 14 and ends with the card's line and one JSON object
-of the phase's numbers; ``--lm-only`` does the same for phase 15 and
-``--families-only`` for phase 16.
+of the phase's numbers; ``--lm-only`` does the same for phase 15,
+``--families-only`` for phase 16 and ``--mesh-only`` for phase 17.
 """
 
 from __future__ import annotations
@@ -3365,11 +3397,12 @@ def drain_leg(sv, card, smi):
 
 
 def run_paths(card, smi):
-    """Phases 6-16: the fp32 main path (with phase 11 on its tenant), the
+    """Phases 6-17: the fp32 main path (with phase 11 on its tenant), the
     int8 path beside it (each with two profiled batches), the simhash
     path, the compaction of both tenants, the front end over both, the
     l1-qmc and w2-quantile tenants, durability, the sharded path, the pod
-    index and the paper's cell, then the LM stack and its other families;
+    index and the paper's cell, then the LM stack, its other families and
+    training on a mesh;
     the launch counts of the runs summed, and the profiles and
     reports."""
     import gc
@@ -3377,7 +3410,7 @@ def run_paths(card, smi):
     import torch
 
     from repro_torch.serve import ServableRegistry
-    log(f"[6/16] main path: repro_torch.launch.serve, l2-basis, "
+    log(f"[6/17] main path: repro_torch.launch.serve, l2-basis, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps")
     registry = ServableRegistry(device="cuda")
     counts, report = drive(lambda: serve_run(
@@ -3389,7 +3422,7 @@ def run_paths(card, smi):
     stacked_parity(registry.get("l2-basis"), prof, "fp32")
     runs_extra, telemetry = [], None
     if has_telemetry():
-        log(f"[11/16] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
+        log(f"[11/17] telemetry, on phase 6's tenant at {MAIN_ITEMS} items "
             "(before phase 7): deep-traced staged batches, their stage "
             "spans, the export against the catalog")
         counts11, telemetry = drive(lambda: telemetry_phase(
@@ -3397,9 +3430,9 @@ def run_paths(card, smi):
             "telemetry")
         runs_extra.append(counts11)
     else:
-        log("[11/16] telemetry: this checkout has no obs package")
+        log("[11/17] telemetry: this checkout has no obs package")
 
-    log(f"[7/16] int8 path: repro_torch.launch.serve --precision int8, "
+    log(f"[7/17] int8 path: repro_torch.launch.serve --precision int8, "
         f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, beside phase 6's "
         "tenant; then the simhash path")
     reg8 = ServableRegistry(device="cuda")
@@ -3415,7 +3448,7 @@ def run_paths(card, smi):
     counts7, _ = drive(lambda: simhash_path(sv8), card, smi,
                        ("simhash_pack",), "simhash path")
 
-    log(f"[8/16] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
+    log(f"[8/17] compaction: {COMPACT_DELETE_FRAC:.0%} of the live items "
         "deleted, then a background compact under streamed 32-row batches, "
         "fp32 tenant then int8")
     victims = pick_victims(sv32)
@@ -3431,7 +3464,7 @@ def run_paths(card, smi):
     compare_tiers(sv32, sv8, "compacted")
     frontend = {}
     if has_frontend():
-        log(f"[12/16] front end: a Frontend in this process on each tier's "
+        log(f"[12/17] front end: a Frontend in this process on each tier's "
             f"compacted tenant, {FE_STREAMS} connections x {FE_REQUESTS} "
             f"requests of {FE_ROWS} rows, NaN rows, embed, a wire-loaded "
             "l1-qmc tenant (ingest, compaction under queries, unload), "
@@ -3447,7 +3480,7 @@ def run_paths(card, smi):
         frontend["frontend drain"] = drain_leg(sv32, card, smi)
         log(f"  phase 12 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[12/16] front end: this checkout has no network front end")
+        log("[12/17] front end: this checkout has no network front end")
     keep = ("ingest_rows_per_s", "qps", "p50_ms", "p95_ms", "recall_at_k",
             "self_hit_rate")
     paths = {
@@ -3469,11 +3502,11 @@ def run_paths(card, smi):
         counts9, paths["tenants"] = tenants_phase(card, smi)
         runs += counts9
     else:
-        log("[9/16] tenants: this checkout serves l2-basis only")
+        log("[9/17] tenants: this checkout serves l2-basis only")
     gc.collect()
     torch.cuda.empty_cache()
     if hasattr(ServableRegistry, "recover"):
-        log(f"[10/16] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
+        log(f"[10/17] durability: l2-basis at {MAIN_ITEMS} items with a WAL, "
             f"a snapshot and a warm standby, then {DURABLE_STEPS} steps; "
             "kill -9 at wal.append and at compact.swap in children, each "
             "recovered in a fresh child; fp32 then int8")
@@ -3485,11 +3518,11 @@ def run_paths(card, smi):
             runs.append(c)
         log(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[10/16] durability: this checkout has no WAL")
+        log("[10/17] durability: this checkout has no WAL")
     gc.collect()
     torch.cuda.empty_cache()
     if has_sharding():
-        log(f"[13/16] sharded path ({smi}): repro_torch.launch.serve on "
+        log(f"[13/17] sharded path ({smi}): repro_torch.launch.serve on "
             f"a {SHARD_RANKS}-rank serve mesh over the card, l2-basis at "
             f"{MAIN_ITEMS} items then {MAIN_STEPS} steps, fp32 (auto "
             "replication) then int8: answers unreplicated, static:2 routed "
@@ -3503,11 +3536,11 @@ def run_paths(card, smi):
         paths.update(sharded)
         log(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[13/16] sharded path: this checkout has no serve mesh")
+        log("[13/17] sharded path: this checkout has no serve mesh")
     gc.collect()
     torch.cuda.empty_cache()
     if has_pod():
-        log(f"[14/16] pod index ({smi}): build, query and brute force on a "
+        log(f"[14/17] pod index ({smi}): build, query and brute force on a "
             f"{POD_MESH[0]} x {POD_MESH[1]} mesh of cuda:0 ranks against "
             "cpu ranks; then the paper's cell through launch.lsh_cell at "
             "16,777,216 items on a 16 x 2 mesh, and its kernels at its shapes")
@@ -3516,11 +3549,11 @@ def run_paths(card, smi):
         runs.append(counts14)
         log(f"  phase 14 wall {time.perf_counter() - t0:.1f}s")
     else:
-        log("[14/16] pod index: this checkout has no pod index")
+        log("[14/17] pod index: this checkout has no pod index")
     gc.collect()
     torch.cuda.empty_cache()
     if has_lm():
-        log(f"[15/16] LM stack ({smi}): {LM_ARCH} smoke on the card against "
+        log(f"[15/17] LM stack ({smi}): {LM_ARCH} smoke on the card against "
             f"the CPU; then at full width {LM_TRAIN['steps']} train steps "
             f"(seq {LM_TRAIN['seq']}, batch {LM_TRAIN['batch']}, grad_accum "
             f"{LM_TRAIN['accum']}), launch.train --smoke stopped and resumed, "
@@ -3529,11 +3562,11 @@ def run_paths(card, smi):
         counts15, paths["lm"], _ = lm_phase(card, smi)
         runs.append(counts15)
     else:
-        log("[15/16] LM stack: this checkout has no LM stack")
+        log("[15/17] LM stack: this checkout has no LM stack")
     gc.collect()
     torch.cuda.empty_cache()
     if has_families():
-        log(f"[16/16] LM families ({smi}): {', '.join(FAMILIES)} smoke on the "
+        log(f"[16/17] LM families ({smi}): {', '.join(FAMILIES)} smoke on the "
             "card against the CPU; then at full width trained (seq "
             f"{FAM_TRAIN['seq']}, batch {FAM_TRAIN['batch']}, grad_accum "
             f"{FAM_TRAIN['accum']}, {FAM_TRAIN['steps']} steps) and served "
@@ -3542,8 +3575,24 @@ def run_paths(card, smi):
         counts16, paths["families"], _ = families_phase(card, smi)
         runs.append(counts16)
     else:
-        log("[16/16] LM families: this checkout has no moe, ssm, hybrid or "
+        log("[16/17] LM families: this checkout has no moe, ssm, hybrid or "
             "enc-dec family")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if has_mesh_train():
+        archs = ", ".join(a for a, _ in MESH_CONFIGS)
+        log(f"[17/17] training on a mesh ({smi}): {archs} smoke on a "
+            f"{MESH_SHAPE[0]} x {MESH_SHAPE[1]} mesh "
+            "of cuda:0 ranks against cpu ranks and the unsharded steps; "
+            f"{LM_ARCH} at full width trained on the mesh (seq "
+            f"{MESH_TRAIN['seq']}, batch {MESH_TRAIN['batch']}, grad_accum "
+            f"{MESH_TRAIN['accum']}) and served (batch {MESH_SERVE['batch']}, "
+            f"cache {MESH_SERVE['cache']}); restore onto (4, 2), launch.train "
+            "--mesh-devices 8, ef_compress, the dry run")
+        counts17, paths["mesh"], _ = mesh_phase(card, smi)
+        runs.append(counts17)
+    else:
+        log("[17/17] training on a mesh: this checkout has no sharding rules")
     counts_all = {name: sum(c[name] for c in runs) for name in counts}
     return counts_all, paths
 
@@ -4314,7 +4363,7 @@ def tenants_phase(card, smi):
     from repro_torch.launch import w2_gate
     from repro_torch.serve import ServableRegistry
     names = ("l1-qmc", "w2-quantile")
-    log(f"[9/16] tenants: repro_torch.launch.serve, {', '.join(names)}, "
+    log(f"[9/17] tenants: repro_torch.launch.serve, {', '.join(names)}, "
         f"{MAIN_ITEMS} items each then {MAIN_STEPS} steps; then l1-qmc at "
         "int8")
     params = {"mu": np.zeros(0), "sig": np.zeros(0)}
@@ -5450,6 +5499,506 @@ def families_phase(card, smi):
     return counts, line, k1
 
 
+# -- phase 17: training on a mesh -----------------------------------------------
+
+
+MESH_SHAPE = (2, 4)
+MESH_CONFIGS = (("llama3.2-3b", {}), ("qwen2-moe-a2.7b", {}),
+                ("internlm2-20b", {"fsdp_params": True}))
+MESH_TRAIN = dict(seq=2048, batch=4, accum=4, steps=3)   # phase 15's shape
+# (b) trains at full width on 8 ranks of the one card: each rank holds its
+# blocks of the fp32 params and both moments (TP over model, a copy per data
+# rank), and a step gathers the whole model and its fp32 gradient
+MESH_TRAIN_CUT = (15, "n_layers 28 -> 15: on one card the 8 ranks hold 24 B "
+                      "a parameter (fp32 params, m and v, one copy per data "
+                      "rank), and a step adds the gathered fp32 model, the "
+                      "reduced gradient and a data rank's gradient (12 B): "
+                      "36 B x 2.0e9 params + ~5 GB of activations ~77 GB; "
+                      "full depth ~127 GB")
+MESH_SERVE = dict(batch=8, cache=2048, prompt=8, steps=16)
+MESH_SMOKE_STEPS = (20, 30)    # launch.train --smoke --mesh-devices 8
+
+
+def has_mesh_train() -> bool:
+    """Does this checkout train on a mesh of ranks?"""
+    return (ROOT / "src" / "repro_torch" / "sharding" / "rules.py").is_file()
+
+
+def blocks_are_slices(what, s):
+    """Raise unless every rank's block of ``s`` is its slice of the
+    gathered tensor; the gathered tensor."""
+    import torch
+    from repro_torch.sharding import rules
+    full = rules.gather(s)
+    for r in s.ranks():
+        if not torch.equal(s.block(*r), full[s.slices(*r)]):
+            raise AssertionError(f"mesh {what}: rank {r}'s block is not its "
+                                 "slice")
+    return full
+
+
+def mesh_sharded_step(api, cfg, model, mesh, ocfg, b, s):
+    """The sharded train step of ``cfg`` on ``mesh`` and ``model``'s
+    parameters laid out over it: (step, params, opt state)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rt
+    shape = ShapeConfig("t", s, b, "train")
+    step, pspec, _, _ = rt.shard_train_step(
+        api, cfg, ocfg, mesh, shape, model, specs.batch_specs(cfg, shape))
+    params = rt.shard_params(model, pspec, mesh)
+    return step, params, adamw.init_sharded(ocfg, params)
+
+
+def mesh_parity(arch, changes, seed):
+    """Phase 17 (a): ``arch``'s smoke config (fp32, 4 micro-batches of 8 x
+    64 tokens) trained 2 steps by ``shard_train_step`` on a (2, 4) mesh of
+    ``cuda:0`` ranks, against the same on ``cpu`` ranks and against the
+    unsharded ``make_train_step`` on the card: loss, every updated parameter
+    and moment (phase 15 (a)'s bars), each rank's block its slice; then 16
+    decode steps of ``shard_serve_step`` against ``make_serve_step`` on the
+    card (logits, every cache leaf, signatures) and K1 against its plain
+    version at the signature's launch."""
+    import dataclasses
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import wasserstein
+    from repro_torch.kernels import hash_mm, ref
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rt
+    from repro_torch.sharding import rules
+    cfg = dataclasses.replace(smoke_config(arch), grad_accum=4, **changes)
+    api, cpu, card = lm_pair(cfg)
+    init = convert.lm_params_to_numpy(cpu)
+    ocfg = adamw.OptConfig()
+    mesh_g = make_pod_mesh(MESH_SHAPE, "cuda")
+    mesh_c = make_pod_mesh(MESH_SHAPE, "cpu")
+    step_g, ps_g, os_g = mesh_sharded_step(api, cfg, card, mesh_g, ocfg, 8, 64)
+    step_c, ps_c, os_c = mesh_sharded_step(api, cfg, cpu, mesh_c, ocfg, 8, 64)
+    step1 = rt.make_train_step(api, cfg, ocfg)
+    opt1 = adamw.init(ocfg, dict(card.named_parameters()))
+    rng = np.random.default_rng(seed)
+    out = {"arch": arch, "changes": changes, "losses": []}
+    for i in range(2):
+        batch = smoke_batch(cfg, rng, 8, 64)
+        gbatch = {k: v.cuda() for k, v in batch.items()}
+        ps_g, os_g, mg = step_g(ps_g, os_g, gbatch)
+        ps_c, os_c, mc = step_c(ps_c, os_c, batch)
+        _, opt1, m1 = step1(card, opt1, gbatch)
+        for key in ("loss", "aux", "grad_norm"):
+            close(f"{arch} mesh {key} (card vs cpu ranks)", mg[key], mc[key],
+                  1e-4, 1e-5)
+            close(f"{arch} mesh {key} (mesh vs unsharded)", mg[key],
+                  m1[key].cpu(), 1e-4, 1e-5)
+        out["losses"].append([float(mg["loss"]), float(mc["loss"]),
+                              float(m1["loss"])])
+    named = dict(card.named_parameters())
+    errs = {"param": 0.0, "moment": 0.0}
+    for n in named:
+        full_g = blocks_are_slices(f"{arch} {n}", ps_g[n])
+        full_c = blocks_are_slices(f"{arch} {n} (cpu)", ps_c[n])
+        errs["param"] = max(errs["param"],
+                            close(f"{arch} mesh param {n}", full_g, full_c,
+                                  1e-4, 1e-5),
+                            close(f"{arch} mesh param {n} vs unsharded",
+                                  full_g, named[n].detach().cpu(), 1e-4,
+                                  1e-5))
+        for key in ("m", "v"):
+            mom = blocks_are_slices(f"{arch} {key} {n}", os_g[key][n])
+            errs["moment"] = max(errs["moment"], close(
+                f"{arch} mesh {key} {n}", mom, opt1[key][n].cpu(), 1e-4,
+                1e-5))
+    out["param_max_abs_err"], out["moment_max_abs_err"] = (errs["param"],
+                                                           errs["moment"])
+    del ps_g, os_g, ps_c, os_c, opt1
+
+    # serve: the untrained weights, sharded and not, on the card
+    convert.lm_params_from_numpy(card, init)
+    lsh = rt.LshServeParams.create(torch.Generator(device="cuda")
+                                   .manual_seed(1), cfg)
+    serve = rt.make_serve_step(api, cfg, lsh)
+    cache = api.init_cache(8, 16, device="cuda")
+    sstep, pspec, cspec = rt.shard_serve_step(
+        api, cfg, mesh_g, ShapeConfig("d", 16, 8, "decode"), card, cache, lsh)
+    sparams = rt.shard_params(card, pspec, mesh_g)
+    scache = rules.shard_tree(cache, cspec, mesh_g)
+    tok = smoke_batch(cfg, rng, 8, 1)["tokens"].cuda()
+    dec_err, boundary, k1 = 0.0, 0, 0.0
+    for pos in range(16):
+        want, cache = serve(card, cache, tok, pos)
+        got, scache = sstep(sparams, scache, tok, pos)
+        dec_err = max(dec_err, close(f"{arch} mesh decode step {pos}",
+                                     got["logits"], want["logits"].cpu(),
+                                     1e-4, 1e-4))
+        emb = wasserstein.w2_embedding_logits(
+            want["logits"][:, 0], lsh.support, lsh.nodes, lsh.volume)
+        _, proj = ref.hash_mm_proj_ref(emb, lsh.alpha, lsh.b, lsh.r)
+        boundary += signature_apart(f"{arch} mesh signature {pos}",
+                                    got["lsh_sig"], want["lsh_sig"], proj)
+        emb_g = wasserstein.w2_embedding_logits(
+            got["logits"][:, 0], lsh.support, lsh.nodes,
+            lsh.volume).contiguous()
+        h, p = hash_mm.hash_mm(emb_g, lsh.alpha, lsh.b, lsh.r)
+        hp, pp = ref.hash_mm_proj_ref(emb_g, lsh.alpha, lsh.b, lsh.r)
+        k1 = max(k1, close(f"{arch} mesh K1 projections", p, pp.cpu(), 1e-6,
+                           1e-5))
+        boundary += signature_apart(f"{arch} mesh K1", h, hp, pp)
+        tok = want["next"]
+    for (key, full), (_, s) in zip(cache_leaves(cache), cache_leaves(scache)):
+        close(f"{arch} mesh cache {key}", blocks_are_slices(key, s),
+              full.cpu(), 1e-4, 1e-4)
+    out.update(cache_spec=cspec, decode_max_abs_err=dec_err,
+               signature_boundary_values=boundary,
+               signature_k1_max_abs_err=k1)
+    return out
+
+
+def mesh_train_full(smi):
+    """Phase 17 (b), training: llama3.2-3b at full width, its depth cut to
+    ``MESH_TRAIN_CUT``, on the (2, 4) mesh of ``cuda:0`` ranks:
+    ``MESH_TRAIN["steps"]`` sharded steps at seq 2,048, global batch 4,
+    grad_accum 4; each rank's parameter and moment bytes against the dry
+    run's prediction for the cell, to the byte."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    tr = MESH_TRAIN
+    cfg = dataclasses.replace(get_config(LM_ARCH), grad_accum=tr["accum"],
+                              n_layers=MESH_TRAIN_CUT[0])
+    shape = ShapeConfig("train", tr["seq"], tr["batch"], "train")
+    api = get_model(cfg)
+    mesh = make_pod_mesh(MESH_SHAPE, "cuda")
+    ocfg = adamw.OptConfig(warmup_steps=1, total_steps=tr["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    step, params, opt = mesh_sharded_step(api, cfg, model, mesh, ocfg,
+                                          tr["batch"], tr["seq"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = dryrun.plan_cell(cfg, shape, make_pod_mesh(MESH_SHAPE, "meta"))
+    per = plan["per_rank"]
+    ranks = {}
+    for r in rules.ranks(mesh):
+        got = (rules.rank_bytes(params, *r),
+               rules.rank_bytes({"m": opt["m"], "v": opt["v"]}, *r))
+        if got != (per["param_bytes"], per["moment_bytes"]):
+            raise AssertionError(f"mesh train: rank {r} holds {got} bytes "
+                                 f"of params and moments, the dry run "
+                                 f"predicts {per['param_bytes']}, "
+                                 f"{per['moment_bytes']}")
+        ranks[f"{r[0]},{r[1]}"] = got
+    pipe = SyntheticPipeline(cfg, shape, seed=0)
+    times, losses, gnorms = [], [], []
+    for i in range(tr["steps"]):
+        batch = {k: torch.as_tensor(v) for k, v in pipe.get_batch(i).items()}
+        ms, (params, opt, m) = cuda_ms(lambda: step(params, opt, batch))
+        times.append(ms)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        log(f"  mesh train step {i}: {ms:.1f} ms, loss {losses[-1]:.4f}, "
+            f"grad norm {gnorms[-1]:.4f}")
+    non_finite = sum(not (np.isfinite(a) and np.isfinite(b))
+                     for a, b in zip(losses, gnorms))
+    if non_finite:
+        raise AssertionError(f"mesh train: {non_finite} non-finite steps: "
+                             f"losses {losses}, grad norms {gnorms}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = lm_profile(lambda: step(params, opt, batch))
+    del params, opt
+    step_s = statistics.median(times[1:]) / 1e3
+    flops = roofline.model_flops("train", cfg.active_param_count(),
+                                 tr["batch"], tr["seq"])
+    return {"arch": cfg.name, "mesh": list(MESH_SHAPE), **tr,
+            "profile": prof,
+            "kernel_share_of_step": kernel_share(prof, step_s * 1e3),
+            "n_layers": cfg.n_layers, "cut": MESH_TRAIN_CUT[1],
+            "params": cfg.param_count(), "remat": cfg.remat,
+            "dtype": cfg.dtype, "step_ms": step_s * 1e3, "step_ms_all": times,
+            "tokens_per_s": tr["batch"] * tr["seq"] / step_s,
+            "model_flops": flops,
+            "mfu": flops / step_s / roofline.BF16_TENSOR_OPS_PER_S,
+            "max_memory_allocated": peak, "non_finite_steps": non_finite,
+            "losses": losses, "grad_norms": gnorms,
+            "rank_param_moment_bytes": ranks,
+            "dry_run_per_rank": per,
+            "dry_run_peak_bytes": plan["roofline"]["memory_stats"][
+                "peak_bytes"]}
+
+
+def mesh_serve_full(card, smi):
+    """Phase 17 (b), serving: llama3.2-3b at full width and depth, its
+    parameters and a batch 8 x 2,048 cache sharded over the (2, 4) mesh,
+    ``MESH_SERVE["steps"]`` steps of ``shard_serve_step`` (rows 0-2 one
+    prompt, rows 3-4 another, ``MESH_SERVE["prompt"]`` tokens then greedy;
+    launch counts read around them: K1 once a step), rows 0-2 sharing
+    every signature; then the unsharded ``make_serve_step`` on the same
+    weights, fed the same tokens: its decode ms beside the sharded step's,
+    the logits' largest difference over their scale and the greedy
+    tokens' agreement.  Returns (launch counts, numbers, the LSH params,
+    the last logits)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models import get_model
+    from repro_torch.runtime import steps as rt
+    from repro_torch.sharding import rules
+    sv = MESH_SERVE
+    cfg = get_config(LM_ARCH)
+    api = get_model(cfg)
+    mesh = make_pod_mesh(MESH_SHAPE, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model = api.init(torch.Generator(device="cuda").manual_seed(0))
+    lsh = rt.LshServeParams.create(torch.Generator(device="cuda")
+                                   .manual_seed(1), cfg)
+    b, t = sv["batch"], sv["cache"]
+    cache = api.init_cache(b, t, device="cuda")
+    sstep, pspec, cspec = rt.shard_serve_step(
+        api, cfg, mesh, ShapeConfig("d", t, b, "decode"), model, cache, lsh)
+    sparams = rt.shard_params(model, pspec, mesh)
+    scache = rules.shard_tree(cache, cspec, mesh)
+    rng = np.random.default_rng(31)
+    prompts = rng.integers(0, cfg.vocab_size, (b, sv["prompt"]))
+    prompts[1:3] = prompts[0]
+    prompts[4] = prompts[3]
+    prompts = torch.as_tensor(prompts, dtype=torch.int32).cuda()
+    fed, outs, times = [], [], []
+
+    def sharded():
+        nonlocal scache
+        tok = prompts[:, :1]
+        for pos in range(sv["steps"]):
+            ms, (got, scache) = cuda_ms(lambda: sstep(sparams, scache, tok,
+                                                      pos))
+            times.append(ms)
+            fed.append(tok)
+            outs.append(got)
+            tok = (prompts[:, pos + 1:pos + 2] if pos + 1 < sv["prompt"]
+                   else got["next"])
+        return {}
+    counts, _ = drive(sharded, card, smi, ("hash_mm",), "mesh serve")
+    if counts["hash_mm"] != sv["steps"]:
+        raise AssertionError(f"mesh serve: K1 launched {counts['hash_mm']} "
+                             f"times in {sv['steps']} steps")
+    for pos, got in enumerate(outs):
+        if not torch.isfinite(got["logits"]).all():
+            raise AssertionError(f"mesh serve: non-finite logits, step {pos}")
+        rows = [tuple(r) for r in got["lsh_sig"].cpu().numpy()]
+        if not rows[0] == rows[1] == rows[2]:
+            raise AssertionError(f"mesh serve: rows 0-2 signatures differ "
+                                 f"at step {pos}")
+    for key, s in cache_leaves(scache):
+        blocks_are_slices(f"serve cache {key}", s)
+    step_ms = statistics.median(times[1:])
+    prof = lm_profile(lambda: sstep(sparams, scache, outs[-1]["next"],
+                                    sv["steps"]))
+    serve = rt.make_serve_step(api, cfg, lsh)
+    t_u, delta, agree = [], 0.0, 0
+    for pos, (tok, got) in enumerate(zip(fed, outs)):
+        ms, (want, cache) = cuda_ms(lambda: serve(model, cache, tok, pos))
+        t_u.append(ms)
+        scale = float(want["logits"].float().abs().max())
+        delta = max(delta, float((got["logits"].float()
+                                  - want["logits"].float()).abs().max())
+                    / scale)
+        agree += int((got["next"] == want["next"]).sum())
+    res = {"arch": cfg.name, "mesh": list(MESH_SHAPE), "batch": b,
+           "cache_len": t, "steps": sv["steps"], "prompt": sv["prompt"],
+           "cache_spec": cspec,
+           "decode_ms": step_ms,
+           "decode_ms_unsharded": statistics.median(t_u[1:]),
+           "decode_ms_all": times, "tokens_per_s": b / step_ms * 1e3,
+           "profile": prof, "kernel_share_of_step": kernel_share(prof,
+                                                                 step_ms),
+           "k1_launches": counts["hash_mm"],
+           "greedy_next_agree_unsharded": agree / (b * sv["steps"]),
+           "max_abs_delta_over_scale": delta,
+           "rows_0_2_share_every_signature": True,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    logits = outs[-1]["logits"]
+    del sparams, scache, cache, model, outs
+    return counts, res, lsh, logits
+
+
+def mesh_restore_and_launcher(smi):
+    """Phase 17 (c): a checkpoint of the smoke llama's parameters sharded
+    over (2, 4) ``cuda:0`` ranks restored onto (4, 2), each block on its new
+    rank and bit-equal; then ``launch.train --smoke --mesh-devices 8`` on
+    the card to ``MESH_SMOKE_STEPS[0]`` steps and again to
+    ``MESH_SMOKE_STEPS[1]``, which must resume."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models import get_model
+    from repro_torch.runtime import steps as rt
+    from repro_torch.sharding import rules
+    cfg = smoke_config(LM_ARCH)
+    model = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(4))
+    m1 = make_pod_mesh(MESH_SHAPE, "cuda")
+    m2 = make_pod_mesh(MESH_SHAPE[::-1], "cuda")
+    params = rt.shard_params(model, rules.param_specs(cfg, model, m1), m1)
+    spec2 = rules.param_specs(cfg, model, m2)
+    with tempfile.TemporaryDirectory(prefix="mesh-ckpt-") as tmp:
+        ms_save, _ = cuda_ms(lambda: ckpt.save(tmp, 1, {"params": params}))
+        target = {"params": {n: ckpt.ArraySpec(tuple(p.shape), p.dtype)
+                             for n, p in model.named_parameters()}}
+        ms_restore, back = cuda_ms(lambda: ckpt.restore(
+            tmp, 1, target, shardings={"params": rules.named(m2, spec2)}))
+    n_blocks = 0
+    for n, p in model.named_parameters():
+        s = back["params"][n]
+        if s.mesh is not m2 or s.spec != spec2[n]:
+            raise AssertionError(f"mesh restore: {n} on {s.spec}")
+        for r in s.ranks():
+            if not torch.equal(s.block(*r), p.detach()[s.slices(*r)]):
+                raise AssertionError(f"mesh restore: {n} rank {r} differs")
+            n_blocks += 1
+    out = {"restore": {"from": list(MESH_SHAPE), "to": list(MESH_SHAPE[::-1]),
+                       "blocks_bit_equal": n_blocks, "save_ms": ms_save,
+                       "restore_ms": ms_restore}}
+    with tempfile.TemporaryDirectory(prefix="mesh-train-") as tmp:
+        runs = []
+        for n in MESH_SMOKE_STEPS:
+            ms, r = cuda_ms(lambda n=n: train_launch.main(
+                ["--smoke", "--mesh-devices", "8", "--steps", str(n),
+                 "--ckpt", tmp]))
+            runs.append((ms, r))
+    (ms1, r1), (ms2, r2) = runs
+    if r1.resumed_from is not None or r2.resumed_from != MESH_SMOKE_STEPS[0]:
+        raise AssertionError(f"mesh launch.train: resumed_from "
+                             f"{r1.resumed_from} then {r2.resumed_from}")
+    if not (np.isfinite(r1.losses).all() and np.isfinite(r2.losses).all()
+            and len(r2.losses) == MESH_SMOKE_STEPS[1] - MESH_SMOKE_STEPS[0]):
+        raise AssertionError("mesh launch.train: bad losses")
+    out["launch_train_mesh"] = {
+        "steps": list(MESH_SMOKE_STEPS), "wall_ms": [ms1, ms2],
+        "first_loss": r1.losses[0],
+        "final_loss": [r1.losses[-1], r2.losses[-1]],
+        "resumed_from": r2.resumed_from}
+    return out
+
+
+def mesh_compress():
+    """Phase 17 (d): ``ef_compress`` and ``compressed_psum`` over 8 ranks on
+    the card against the CPU: codes and scales bit-equal, the means and the
+    carried errors allclose."""
+    import torch
+    from repro_torch.optim import compress
+    gen = torch.Generator().manual_seed(17)
+    shapes = {"wq": (3072, 24, 128), "bias": (3072,), "tiny": (7, 5)}
+    grads = [{k: torch.randn(s, generator=gen) * 1e-3 * (i + 1)
+              for k, s in shapes.items()} for i in range(8)]
+    errs = [{k: torch.randn(s, generator=gen) * 1e-6
+             for k, s in shapes.items()} for _ in range(8)]
+    card = lambda tree: {k: v.cuda() for k, v in tree.items()}  # noqa: E731
+    n_codes = 0
+    for g, e in zip(grads, errs):
+        qc, sc, ec = compress.ef_compress(g, e)
+        qg, sg, eg = compress.ef_compress(card(g), card(e))
+        for k in shapes:
+            if not (torch.equal(qg[k].cpu(), qc[k])
+                    and torch.equal(bits(sg[k].cpu()), bits(sc[k]))):
+                raise AssertionError(f"mesh compress: {k} codes or scale "
+                                     "differ on the card")
+            close(f"compress error {k}", eg[k], ec[k], 0, 1e-9)
+            n_codes += qc[k].numel()
+    mc, _ = compress.compressed_psum(grads, errs)
+    mg, _ = compress.compressed_psum([card(g) for g in grads],
+                                     [card(e) for e in errs])
+    err = max(close(f"compressed_psum {k}", mg[i][k], mc[i][k], 1e-6, 1e-9)
+              for i in range(8) for k in shapes)
+    return {"ranks": 8, "codes_bit_equal": n_codes,
+            "psum_mean_max_abs_err": err}
+
+
+def mesh_dry_run():
+    """Phase 17 (e): the dry run over every (arch x shape) cell of the
+    production 16 x 16 mesh on ``meta``, and its table."""
+    from repro_torch.launch import dryrun, report
+    t0 = time.perf_counter()
+    results = dryrun.run(log=lambda s: None)
+    wall = time.perf_counter() - t0
+    bad = {k: v for k, v in results.items()
+           if v["status"] not in ("ok", "skipped")}
+    if bad:
+        raise AssertionError(f"mesh dry run: {sorted(bad)} failed")
+    for line in report.table(results, "single"):
+        log(f"  {line}")
+    return {"cells": len(results),
+            "ok": sum(v["status"] == "ok" for v in results.values()),
+            "skipped": sum(v["status"] == "skipped"
+                           for v in results.values()),
+            "fits": sorted(k for k, v in results.items()
+                           if v.get("fits")),
+            "train_4k": {k.split("/")[1]: {
+                "fits": v["fits"], "fits_state": v["fits_state"],
+                "state_gb": v["roofline"]["memory_stats"]["state_bytes"] / 1e9,
+                "step_peak_gb": v["roofline"]["memory_stats"]["peak_bytes"]
+                / 1e9} for k, v in results.items()
+                if k.endswith("/train_4k")}, "wall_s": wall}
+
+
+def mesh_phase(card, smi):
+    """Phase 17 (see the module docstring).  Returns (launch counts of the
+    full-width serve, the numbers, the signature's K1 record)."""
+    import gc
+    import threading
+
+    import torch
+    t0 = time.perf_counter()
+    tag = f"[{card}, {smi.split(',')[-1].strip()}]"
+    line = {"card": smi, "parity": {}}
+    for i, (arch, changes) in enumerate(MESH_CONFIGS):
+        line["parity"][arch] = mesh_parity(arch, changes, 170 + i)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  {tag} mesh (a) {json.dumps(line['parity'])}")
+    line["train"] = mesh_train_full(smi)
+    log(f"  {tag} mesh (b) train {json.dumps(line['train'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, line["serve"], lsh, logits = mesh_serve_full(card, smi)
+    line["serve"]["launches"] = counts
+    log(f"  {tag} mesh (b) serve {json.dumps(line['serve'])}")
+    from repro_torch.core import wasserstein
+    emb = wasserstein.w2_embedding_logits(
+        logits[:, 0], lsh.support, lsh.nodes, lsh.volume).contiguous()
+    k1 = lm_k1_record(lsh, emb)
+    del logits, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["restore"] = mesh_restore_and_launcher(smi)
+    log(f"  {tag} mesh (c) {json.dumps(line['restore'])}")
+    line["compress"] = mesh_compress()
+    log(f"  {tag} mesh (d) {json.dumps(line['compress'])}")
+    line["dry_run"] = mesh_dry_run()
+    log(f"  {tag} mesh (e) {json.dumps(line['dry_run'])}")
+    line.update(k1_signature=k1, host_threads=threading.active_count(),
+                wall_s=time.perf_counter() - t0)
+    log(f"  phase 17 wall {line['wall_s']:.1f}s, {line['host_threads']} host "
+        "threads")
+    return counts, line, k1
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -5462,12 +6011,13 @@ def main(argv=None) -> int:
                     "then one JSON line of timing records; to time another "
                     "checkout's kernels, copy this script to its root")
     ap.add_argument("--paths-only", action="store_true",
-                    help="phases 1, 2 and 6-16 only: build, then the fp32, "
+                    help="phases 1, 2 and 6-17 only: build, then the fp32, "
                     "int8 and simhash paths with their profiled batches, "
                     "the telemetry, the compactions, the front end, the "
                     "l1-qmc and "
                     "w2-quantile tenants, durability, the sharded path "
-                    "the pod index, the LM stack and its families, then one "
+                    "the pod index, the LM stack, its families and training "
+                    "on a mesh, then one "
                     "JSON "
                     "line of profiles and reports; to profile another "
                     "checkout, copy this script to its root")
@@ -5483,6 +6033,11 @@ def main(argv=None) -> int:
                     help="phases 1, 2 and 16 only: build, then the moe, ssm, "
                     "hybrid and enc-dec families against the CPU and at full "
                     "width, then one JSON line of their numbers")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1, 2 and 17 only: build, then training on a "
+                    "mesh of ranks against the CPU and the unsharded steps, "
+                    "at full width, the restore, the launcher, ef_compress "
+                    "and the dry run, then one JSON line of their numbers")
     ap.add_argument("--durable-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire-client", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5503,14 +6058,14 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     card = torch.cuda.get_device_name(0)
-    log(f"[1/16] device: {smi}; torch {torch.__version__}, CUDA "
+    log(f"[1/17] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     floor_job = start_floor_build()
     spent = _build.build()
     floor_fn = finish_floor_build(floor_job)
-    log(f"[2/16] build: {time.perf_counter() - t0:.2f}s wall "
+    log(f"[2/17] build: {time.perf_counter() - t0:.2f}s wall "
         + json.dumps({k: round(v, 2) for k, v in spent.items()}))
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -5519,22 +6074,28 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(0)
     if args.pod_only:
-        log(f"[14/16] pod index ({smi}), alone")
+        log(f"[14/17] pod index ({smi}), alone")
         counts14, pod = pod_phase(card, smi)
         print(smi)
         print(json.dumps({"pod": pod}))
         return 0
     if args.lm_only:
-        log(f"[15/16] LM stack ({smi}), alone")
+        log(f"[15/17] LM stack ({smi}), alone")
         lm = lm_phase(card, smi)[1]
         print(smi)
         print(json.dumps({"lm": lm}))
         return 0
     if args.families_only:
-        log(f"[16/16] LM families ({smi}), alone")
+        log(f"[16/17] LM families ({smi}), alone")
         families = families_phase(card, smi)[1]
         print(smi)
         print(json.dumps({"families": families}))
+        return 0
+    if args.mesh_only:
+        log(f"[17/17] training on a mesh ({smi}), alone")
+        mesh = mesh_phase(card, smi)[1]
+        print(smi)
+        print(json.dumps({"mesh": mesh}))
         return 0
     if args.paths_only:
         paths = run_paths(card, smi)[1]
@@ -5542,17 +6103,17 @@ def main(argv=None) -> int:
         print(json.dumps({"paths": paths}))
         return 0
     if args.timings_only:
-        log("[4/16] CPU (plain versions) vs card (kernels) parity")
+        log("[4/17] CPU (plain versions) vs card (kernels) parity")
         k2_inputs = parity_run()
         captured = int8_parity_run()
         k2_p1_inputs = parity_run("l1-qmc") if has_tenants() else None
-        log(f"[5/16] timings, {smi}")
+        log(f"[5/17] timings, {smi}")
         rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], {},
                       floor_fn, k2_p1_inputs)
         print(smi)
         print(json.dumps({"timings": rec}))
         return 0
-    log("[3/16] kernel checks against the plain versions on the card: "
+    log("[3/17] kernel checks against the plain versions on the card: "
         "hash_mm proj rtol 1e-6 atol 1e-5 and hashes equal where "
         "|proj - round(proj)| > 1e-4, bit-equal across batch sizes, "
         "saturated / infinite / NaN projections bit-equal, and with a "
@@ -5677,7 +6238,7 @@ def main(argv=None) -> int:
     check_nan_queries()
     check_query_batched()
 
-    log("[4/16] CPU (plain versions) vs card (kernels) parity")
+    log("[4/17] CPU (plain versions) vs card (kernels) parity")
     k2_inputs = parity_run()
     captured = int8_parity_run()
     k2_p1_inputs = None
@@ -5685,7 +6246,7 @@ def main(argv=None) -> int:
         k2_p1_inputs = parity_run("l1-qmc")
         parity_run("w2-quantile")
 
-    log("[5/16] timings (median of CUDA events over "
+    log("[5/17] timings (median of CUDA events over "
         f"{REPS} launches after {WARMUP} warm-up), {smi}")
     rec = timings(gen, k2_inputs, captured["k5"], captured["k6"], errs,
                   floor_fn, k2_p1_inputs)
@@ -5723,6 +6284,17 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/csrc/hash_mm.cu",
             "replaces": REPLACES["hash_mm"],
             "launches": paths["families"]["launches"]["hash_mm"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    if "mesh" in paths:
+        # K1 at the sharded serve step's signature (phase 17 (b))
+        t = paths["mesh"]["k1_signature"]
+        kernels.append({
+            "name": "hash_mm@lm_mesh", "route": "cuda",
+            "source": "src/repro_torch/csrc/hash_mm.cu",
+            "replaces": REPLACES["hash_mm"],
+            "launches": paths["mesh"]["serve"]["launches"]["hash_mm"],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -21,13 +21,20 @@ unchanged, so either package restores the other's checkpoints:
 * ``save_async`` copies the tree to the host now and writes it on a
   background thread (``wait`` joins it).
 
-Leaves are torch tensors or numpy arrays.  bf16 has no numpy dtype: a
+Leaves are torch tensors, numpy arrays or ``sharding.rules.Sharded``
+tensors over a mesh of ranks, which are saved whole (their blocks
+gathered), so a checkpoint does not depend on the mesh it was saved from
+and either package reads it.  bf16 has no numpy dtype: a
 ``torch.bfloat16`` tensor is stored as its raw ``uint16`` bits under the
 dtype string ``"bfloat16"``, as the JAX package stores its ml_dtypes
 arrays, and read back the same way.  :func:`restore` takes a tree of
 :class:`ArraySpec` ``(shape, dtype)`` leaves (the JAX package takes
 ``ShapeDtypeStruct``s), checks both against the manifest and returns torch
-tensors on ``device``.
+tensors on ``device``; with ``shardings`` (a tree of
+``sharding.rules.NamedSpec``, the JAX ``NamedSharding``s) a leaf comes back
+sharded over that spec's mesh instead, so a checkpoint saved from a (2, 4)
+mesh restores onto a (4, 2) one (the elastic re-mesh), and a ``Sharded``
+target leaf comes back laid out as it is.
 
 Fault site (``serve/faults.py``): ``ckpt.rename`` fires after the temp dir
 is fully written, before the rename.
@@ -55,6 +62,7 @@ import torch
 from ..kernels import dispatch
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from ..sharding import rules
 
 _SEP = "/"
 
@@ -132,6 +140,8 @@ def to_host(tree: Any) -> dict:
     no lock held."""
     out = {}
     for key, leaf in _flatten(tree).items():
+        if isinstance(leaf, rules.Sharded):
+            leaf = rules.gather(leaf, device="cpu")
         arr = _host(leaf)
         if isinstance(leaf, torch.Tensor):
             dtype_str = _dtype_name(leaf.dtype)
@@ -362,29 +372,38 @@ def _to_torch(arr: np.ndarray, stored: str, spec: ArraySpec,
     want = _dtype_name(spec.dtype)
     if stored != want:
         raise ValueError(f"dtype mismatch: stored {stored}, want {want}")
+    # np.ascontiguousarray makes a 0-dim array 1-dim: keep the shape
     if spec.dtype == torch.bfloat16:         # raw-stored bits
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
         t = t.view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device)
+    return t.reshape(arr.shape).to(device)
 
 
-def restore(ckpt_dir: str, step: int, target: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, target: Any, device=None,
+            shardings: Optional[Any] = None) -> Any:
     """Restore into the structure of ``target``, a tree of
-    :class:`ArraySpec` leaves (or tensors, whose shape and dtype are
-    taken).  Every array's crc32, shape and dtype are checked before it
-    is placed on ``device`` (default: the card); a crc mismatch raises
-    :class:`CheckpointCorruptError`, a key the checkpoint lacks KeyError,
-    a shape or dtype that differs ValueError."""
-    dev = dispatch.resolve_device(device)
+    :class:`ArraySpec` leaves (or tensors or ``Sharded`` tensors, whose
+    shape and dtype are taken).  Every array's crc32, shape and dtype are
+    checked before it is placed: sharded over the ``NamedSpec`` at its key
+    in ``shardings`` when there is one, else as a ``Sharded`` target leaf
+    lays out its blocks, else on ``device`` (default: the card).  A crc
+    mismatch raises :class:`CheckpointCorruptError`, a key the checkpoint
+    lacks KeyError, a shape or dtype that differs ValueError."""
+    flat_t = _flatten(target)
+    placed = _flatten(shardings) if shardings is not None else {}
+    dev = None
+    if any(k not in placed and not isinstance(v, rules.Sharded)
+           for k, v in flat_t.items()):
+        dev = dispatch.resolve_device(device)
     tenant = _tenant(ckpt_dir)
     tr = obs_trace.tracer()
     t0 = tr.clock()
     reg = obs_metrics.registry()
     try:
         with tr.span("ckpt.restore", tenant=tenant, step=int(step)):
-            out = _restore_body(ckpt_dir, step, target, dev)
+            out = _restore_body(ckpt_dir, step, target, dev, placed)
     except CheckpointCorruptError:
         reg.inc("ckpt_corrupt_total", tenant=tenant)
         raise
@@ -394,7 +413,7 @@ def restore(ckpt_dir: str, step: int, target: Any, device=None) -> Any:
 
 
 def _restore_body(ckpt_dir: str, step: int, target: Any,
-                  dev: torch.device) -> Any:
+                  dev: Optional[torch.device], placed: dict) -> Any:
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     manifest = _read_manifest(path)
     npz_path = os.path.join(path, "arrays.npz")
@@ -406,7 +425,10 @@ def _restore_body(ckpt_dir: str, step: int, target: Any,
     out = {}
     with data:
         for key, spec in _flatten(target).items():
-            if isinstance(spec, torch.Tensor):
+            named = placed.get(key)
+            if isinstance(spec, rules.Sharded):
+                named = named or spec.named()
+            if isinstance(spec, (torch.Tensor, rules.Sharded)):
                 spec = ArraySpec(tuple(spec.shape), spec.dtype)
             meta = manifest["keys"].get(key)
             if meta is None:
@@ -416,9 +438,12 @@ def _restore_body(ckpt_dir: str, step: int, target: Any,
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(spec.shape)}")
             try:
-                out[key] = _to_torch(arr, meta["dtype"], spec, dev)
+                t = _to_torch(arr, meta["dtype"], spec,
+                              torch.device("cpu") if named else dev)
             except ValueError as e:
                 raise ValueError(f"{key}: {e}") from None
+            out[key] = (rules.shard(t, named.spec, named.mesh) if named
+                        else t)
     return _unflatten(target, out)
 
 

@@ -78,7 +78,9 @@ def store_dtype(override: str | None = None) -> str:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU.  Raises when the card is asked for (or implied) and absent.
+    for the CPU (``"cpu"``) or for shapes alone (``"meta"``: tensors that
+    hold no memory, as the dry run sizes a cell; nothing computes there).
+    Raises when the card is asked for (or implied) and absent.
     A card without an index is pinned to the calling thread's current one,
     so a worker thread that makes tensors on an index's device lands on
     that index's card, whatever the worker's own current device."""
@@ -91,9 +93,10 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return dev
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
-    raise ValueError(f"unsupported device {dev}; want 'cuda' or 'cpu'")
+    raise ValueError(f"unsupported device {dev}; want 'cuda', 'cpu' or "
+                     "'meta'")
 
 
 def use_kernel(t: torch.Tensor) -> bool:

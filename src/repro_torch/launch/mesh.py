@@ -8,7 +8,8 @@ design: one process drives every rank, and a :class:`ServeMesh` is an
 ordered tuple of ``torch.device`` ranks along one axis, ``"serve"``.  A
 physical device may hold several ranks:
 
-* on the CPU every rank is ``cpu`` (the tests use 8);
+* on the CPU every rank is ``cpu`` (the tests use 8); on ``meta`` (the
+  dry run's shapes, no memory) every rank is ``meta``;
 * on a machine with one card every rank is ``cuda:0``;
 * with more cards, rank ``i`` is ``cuda:((base + i) % device_count)``,
   ``base`` the index of the card asked for (``cuda`` alone: the current
@@ -66,7 +67,7 @@ def _ranks(n: int, device) -> Tuple[torch.device, ...]:
     """``n`` ranks on ``device`` (resolved by ``dispatch.resolve_device``)
     in the order the module docstring sets out."""
     base = dispatch.resolve_device(device)
-    if base.type == "cpu":
+    if base.type in ("cpu", "meta"):
         return (base,) * n
     count = torch.cuda.device_count()
     return tuple(torch.device("cuda", (base.index + i) % count)

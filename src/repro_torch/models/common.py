@@ -46,14 +46,37 @@ def pdtype_of(cfg: ArchConfig) -> torch.dtype:
 # init helpers (the draws are the port's own: torch.Generator, not JAX keys)
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` to build a model on the ``meta``
+    device: the init helpers draw nothing from it and allocate nothing,
+    so a full-width model's shapes and dtypes cost no host memory (the
+    JAX package's ``jax.eval_shape(api.init, key)``).  ``torch.Generator``
+    itself refuses ``meta``."""
+
+    device = torch.device("meta")
+
+
+def on_meta(gen) -> bool:
+    """Does ``gen`` build on the ``meta`` device (draw nothing)?"""
+    return gen.device.type == "meta"
+
+
+def _empty(shape, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
+
+
 def dense_init(gen: torch.Generator, shape, dtype,
                fan_in: Optional[int] = None) -> nn.Parameter:
+    if on_meta(gen):
+        return _empty(shape, dtype)
     fan_in = fan_in or shape[0]
     w = torch.randn(shape, generator=gen, device=gen.device)
     return nn.Parameter((w * (1.0 / np.sqrt(fan_in))).to(dtype))
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> nn.Parameter:
+    if on_meta(gen):
+        return _empty(shape, dtype)
     w = torch.randn(shape, generator=gen, device=gen.device)
     return nn.Parameter((w * 0.02).to(dtype))
 

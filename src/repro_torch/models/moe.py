@@ -22,14 +22,17 @@ scatter-add, with no atomics.
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import contextvars
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .common import FFN, dense_init, ffn, pdtype_of
+from ..sharding import context
+from .common import FFN, dense_init, ffn, on_meta, pdtype_of
 
 
 def _expert_stack(gen: torch.Generator, shape, dtype, fan_in: int
@@ -37,6 +40,8 @@ def _expert_stack(gen: torch.Generator, shape, dtype, fan_in: int
     """``dense_init`` of an (E, a, b) stack drawn one expert at a time, so
     no fp32 copy of the whole stack is ever held (arctic's is 17.8 GB)."""
     w = torch.empty(shape, dtype=dtype, device=gen.device)
+    if on_meta(gen):
+        return nn.Parameter(w)
     scale = 1.0 / fan_in ** 0.5
     with torch.no_grad():
         for e in range(shape[0]):
@@ -63,6 +68,79 @@ class MoE(nn.Module):
             self.shared_gate = dense_init(gen, (d, 1), pd)
         if cfg.dense_residual:
             self.dense = FFN(gen, d, cfg.dense_d_ff, cfg)
+
+
+_TP = "model"
+_UNC = context.UNCONSTRAINED
+
+
+def _constrain(x: torch.Tensor, spec) -> torch.Tensor:
+    """``sharding.context.constrain`` on the model axis: the JAX package's
+    layout pins around the expert einsums; values unchanged."""
+    return context.constrain(x, spec, axes=(_TP,))
+
+
+class GlobalRouting:
+    """The Switch aux loss's routing fractions over a batch that several
+    data ranks hold.  ``aux = E * sum_e me_e * ce_e`` is a product of two
+    means over the whole batch; a rank that sees only its rows must use the
+    batch's ``ce`` (the share of assignments each expert took), or the sum
+    of the ranks' terms is not the aux of the batch.  ``me``, the mean
+    router probability, stays the rank's own: weighted by the rank's share
+    of the rows, the ranks' terms then sum to the batch's aux.
+
+    Two passes (``runtime.steps.shard_train_step``): under :meth:`record`
+    each MoE layer adds its assignment counts into the table (the
+    all-reduce of the counts); under :meth:`apply` each layer reads the
+    summed counts back in place of its own.  The counts are integers in
+    fp32, so the batch's ``ce`` is bit for bit the unsharded step's.
+    Layers are keyed by module name: ``add_model`` maps each MoE module of
+    a model to its name, so the compute models of several devices share
+    one table."""
+
+    def __init__(self):
+        self.names: Dict[int, str] = {}
+        self.counts: Dict[str, torch.Tensor] = {}
+        self.totals: Dict[str, int] = {}
+        self._mode = "record"
+
+    def add_model(self, model: nn.Module) -> "GlobalRouting":
+        for name, m in model.named_modules():
+            if isinstance(m, MoE):
+                self.names[id(m)] = name
+        return self
+
+    @contextlib.contextmanager
+    def record(self):
+        self._mode = "record"
+        token = _ROUTING.set(self)
+        try:
+            yield self
+        finally:
+            _ROUTING.reset(token)
+
+    @contextlib.contextmanager
+    def apply(self):
+        self._mode = "apply"
+        token = _ROUTING.set(self)
+        try:
+            yield self
+        finally:
+            _ROUTING.reset(token)
+
+    def ce(self, p: "MoE", counts: torch.Tensor, total: int) -> torch.Tensor:
+        name = self.names[id(p)]
+        if self._mode == "record":
+            seen = self.counts.get(name)
+            self.counts[name] = (counts.detach() if seen is None else
+                                 seen + counts.detach().to(seen.device))
+            self.totals[name] = self.totals.get(name, 0) + total
+            return counts / total
+        return (self.counts[name] / self.totals[name]).to(counts.device)
+
+
+_ROUTING: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moe_routing", default=None)
 
 
 def _capacity(cfg: ArchConfig, n_tokens: int) -> int:
@@ -124,8 +202,10 @@ def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor
 
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e (real experts)
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(top_e, cfg.n_experts).float().sum(dim=(0, 1, 2)) \
-        / (b * s * k)
+    counts = F.one_hot(top_e, cfg.n_experts).float().sum(dim=(0, 1, 2))
+    routing = _ROUTING.get()
+    ce = (counts / (b * s * k) if routing is None
+          else routing.ce(p, counts, b * s * k))
     aux = cfg.n_experts * torch.sum(me * ce)
 
     slot_tok, slot_of = _dispatch(cfg, top_e, cap)
@@ -133,9 +213,12 @@ def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor
     gx = torch.gather(x, 1, slot_tok.clamp(min=0)[..., None].expand(-1, -1, d))
     gx = torch.where(held, gx, 0.0).reshape(b, e, cap, d)     # (B, E, C, d)
 
+    gx = _constrain(gx, (_UNC, _TP, None, None))
     h = torch.einsum("becd,edf->becf", gx, p.w_up.to(dt))
     g = torch.einsum("becd,edf->becf", gx, p.w_gate.to(dt))
-    y = torch.einsum("becf,efd->becd", F.silu(g) * h, p.w_down.to(dt))
+    h = _constrain(F.silu(g) * h, (_UNC, _TP, None, None))
+    y = torch.einsum("becf,efd->becd", h, p.w_down.to(dt))
+    y = _constrain(y, (_UNC, _TP, None, None))
 
     # combine: each token gathers its slots in ascending slot order (a
     # dropped assignment reads the zero row E*C) and sums them in dt

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .common import _act, dense_init, pdtype_of
+from .common import _act, dense_init, on_meta, pdtype_of
 from .ssm import causal_conv
 
 _C = 8.0
@@ -46,8 +46,11 @@ class RGLRU(nn.Module):
         self.w_i = dense_init(gen, (lw, lw), pd)
         self.b_i = nn.Parameter(torch.zeros((lw,), dtype=pd, device=dev))
         # Lambda in [2, 6), so that a^c spans ~(0.9, 0.999) as in the paper
-        lam = torch.rand((lw,), generator=gen, device=dev) * 4.0 + 2.0
-        self.lam = nn.Parameter(lam.to(pd))
+        if on_meta(gen):
+            self.lam = nn.Parameter(torch.empty((lw,), dtype=pd, device=dev))
+        else:
+            lam = torch.rand((lw,), generator=gen, device=dev) * 4.0 + 2.0
+            self.lam = nn.Parameter(lam.to(pd))
         self.out = dense_init(gen, (lw, d), pd, fan_in=lw)
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -62,18 +62,36 @@ def init(cfg: OptConfig, params: Tensors) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def init_sharded(cfg: OptConfig, params: dict) -> dict:
+    """:func:`init` for parameters sharded over a mesh (``{name:
+    sharding.rules.Sharded}``): each rank's moments are zeros of its own
+    blocks' shape, made on its device (no whole moment is ever held), and
+    every rank holds the step counter."""
+    from ..sharding import rules
+    dt = getattr(torch, cfg.moment_dtype)
+    some = next(iter(params.values()))
+    return {"m": {n: rules.zeros(s.shape, dt, s.spec, s.mesh)
+                  for n, s in params.items()},
+            "v": {n: rules.zeros(s.shape, dt, s.spec, s.mesh)
+                  for n, s in params.items()},
+            "step": rules.zeros((), torch.int32, (), some.mesh)}
+
+
 def global_norm(tree: Tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                           for t in tree.values()))
 
 
 @torch.no_grad()
-def update(cfg: OptConfig, grads: Tensors, state: dict, params: Tensors
+def update(cfg: OptConfig, grads: Tensors, state: dict, params: Tensors,
+           grad_norm: Optional[torch.Tensor] = None
            ) -> Tuple[Tensors, dict, dict]:
     """One AdamW step: ``params`` and ``state``'s moments updated in place.
-    Returns (params, new state, metrics)."""
+    Returns (params, new state, metrics).  ``grad_norm``, when given, is
+    the clip's global norm: a rank that updates its blocks alone passes the
+    norm over every block of the model, not of its own."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

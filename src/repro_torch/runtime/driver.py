@@ -8,10 +8,17 @@ The port of ``repro/runtime/driver.py``, on the port's checkpoints
 * periodic async checkpointing (atomic, keep-last-k);
 * a count of non-finite steps, with a bound (``max_nan_skips``);
 * per-step heartbeat with a straggler deadline: steps exceeding
-  ``deadline_s`` are counted and logged (the JAX package's
-  ``on_straggler`` hook has no caller in the port yet);
+  ``deadline_s`` invoke ``on_straggler(step, seconds)`` (at fleet scale:
+  mark the host slow, re-mesh; here: logged and counted);
+* ``put_batch`` places each batch before the step (the sharded step's
+  batch over the mesh's data ranks: ``launch/train.py --mesh-devices``);
 * deterministic data restart: the pipeline is a pure function of step, so
   a resumed run consumes the identical stream.
+
+The parameters are a model (updated in place; a resume copies into it) or
+a ``{name: sharding.rules.Sharded}`` dict (the sharded step's; a resume
+places each leaf's blocks on its mesh as the leaf lays them out, whatever
+mesh the checkpoint was saved from).
 
 After a non-finite loss the state is the step's output, as in the JAX
 package's code (``repro/runtime/driver.py:80-87``; its docstring says the
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import checkpoint as ckpt
+from ..sharding import rules
 
 
 @dataclasses.dataclass
@@ -63,28 +71,42 @@ def _state_tree(params, opt_state) -> dict:
 
 
 @torch.no_grad()
-def _load(params, restored: dict) -> None:
-    """Copy restored parameters into ``params`` in place."""
-    named = (dict(params.named_parameters())
-             if isinstance(params, torch.nn.Module) else params)
+def _load(params, restored: dict):
+    """The parameters to carry on with: a model gets the restored tensors
+    copied in place; a dict of sharded leaves is replaced."""
+    if not isinstance(params, torch.nn.Module):
+        return restored
+    named = dict(params.named_parameters())
     for name, t in restored.items():
         named[name].copy_(t)
+    return params
+
+
+def _device_of(leaf) -> torch.device:
+    if isinstance(leaf, rules.Sharded):
+        return leaf.block(0, 0).device
+    return leaf.device
 
 
 def train_loop(driver_cfg: DriverConfig, train_step, params, opt_state,
                get_batch: Callable[[int], Any],
+               put_batch: Callable[[Any], Any] = lambda b: b,
+               on_straggler: Optional[Callable[[int, float], None]] = None,
                log: Callable[[str], None] = print) -> TrainResult:
     """Run (or resume) training.  ``train_step(params, opt, batch) ->
     (params, opt, metrics)``, where ``params`` is the model (updated in
-    place) and ``metrics["loss"]`` a scalar tensor."""
+    place) or the sharded step's dict of blocks, and ``metrics["loss"]`` a
+    scalar tensor.  ``put_batch`` places ``get_batch(step)`` before the
+    step; ``on_straggler(step, seconds)`` hears of each step past the
+    deadline."""
     resumed_from = None
     latest = ckpt.latest_step(driver_cfg.ckpt_dir)
     if latest is not None:
         tree = _state_tree(params, opt_state)
-        dev = next(iter(tree["params"].values())).device
+        dev = _device_of(next(iter(tree["params"].values())))
         restored = ckpt.restore(driver_cfg.ckpt_dir, latest, tree,
                                 device=dev)
-        _load(params, restored["params"])
+        params = _load(params, restored["params"])
         opt_state = restored["opt"]
         resumed_from = latest
         log(f"[driver] resumed from step {latest}")
@@ -95,7 +117,7 @@ def train_loop(driver_cfg: DriverConfig, train_step, params, opt_state,
     straggler_events = 0
     for step in range(start, driver_cfg.total_steps):
         t0 = time.monotonic()
-        batch = get_batch(step)
+        batch = put_batch(get_batch(step))
         new_params, new_opt, metrics = train_step(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.monotonic() - t0
@@ -114,6 +136,8 @@ def train_loop(driver_cfg: DriverConfig, train_step, params, opt_state,
 
         if dt > driver_cfg.deadline_s:
             straggler_events += 1
+            if on_straggler:
+                on_straggler(step, dt)
             log(f"[driver] step {step}: straggler ({dt:.1f}s > "
                 f"{driver_cfg.deadline_s}s deadline)")
 

@@ -1,8 +1,6 @@
-"""train_step / serve_step factories.
+"""train_step / serve_step factories, unsharded and over a mesh of ranks.
 
-The port of ``repro/runtime/steps.py:36-205`` (the unsharded factories;
-``shard_train_step`` / ``shard_serve_step`` wait for the port's sharding
-rules).
+The port of ``repro/runtime/steps.py``.
 
 ``make_train_step``: CE loss (next-token) -> grads -> global-norm clip ->
 AdamW, with ``cfg.grad_accum`` micro-batches per update.  Parameters and
@@ -14,22 +12,57 @@ path: the step also emits a W^2-LSH signature of each sequence's output
 distribution (softmax -> inverse CDF at QMC nodes -> Eq. 3 embedding ->
 p-stable hash), which a server uses to dedupe sequences in the same state.
 The hash is K1 (``kernels/ops.pstable_hash``) on the card.
+
+``shard_train_step`` / ``shard_serve_step``: the same steps over a
+``launch.mesh.PodMesh`` of ranks (one process drives every rank, as the
+JAX package's single controller does), laid out by
+``sharding.rules``.  Between steps each rank holds only its blocks: of the
+parameters and AdamW's moments (``param_specs``: TP over ``model``, FSDP
+over ``data`` where ``cfg.fsdp_params``), and of the decode cache
+(``cache_specs``: batch over ``data``, KV length over ``model`` where it
+divides).  Inside a step the layers compute from *gathered* blocks (the
+FSDP pattern of ``repro/sharding/rules.py:7-10``): each device the ranks
+use gathers the whole parameters into a module of its own at the start
+of the step and frees it at the end.  Then:
+
+* train: the batch splits over the data ranks by ``batch_axis`` (rows in
+  contiguous blocks, as a sharded batch dim lies), inside the interleaved
+  micro-batch split (micro-batch i takes rows i, i + accum, ...: each
+  data rank runs its own rows of each micro-batch).  A rank's share of a
+  micro-batch's loss is weighted by its share of the rows, so the ranks'
+  gradients sum to the micro-batch's.  Each data rank's gradient is
+  all-reduced over the data axis (the collective); the clip's global norm
+  is taken over that whole reduced gradient, and each rank's AdamW then
+  updates its own blocks from its slice of it.  The Switch aux loss is a
+  product of batch means: a micro-batch whose rows sit on several ranks is
+  first routed once without gradients to all-reduce its experts' counts
+  (``models.moe.GlobalRouting``), so every rank's aux uses the batch's.
+* serve: the cache's blocks are gathered on rank (0, 0)'s device, where
+  the unsharded decode step runs on the gathered parameters and the
+  signature (K1) is taken once a step; the updated cache is scattered
+  back into the ranks' blocks.
+
+A replicated batch (``batch_axis`` None) is run by data rank 0 alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..core import hashes, wasserstein
 from ..kernels import ops
 from ..models import common as mcommon
 from ..models.model import ModelApi
+from ..models.moe import GlobalRouting
 from ..optim import adamw
+from ..sharding import context as shctx
+from ..sharding import rules
 
 
 # ---------------------------------------------------------------------------
@@ -198,3 +231,234 @@ def make_serve_step(api: ModelApi, cfg: ArchConfig,
         return out, new_cache
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# sharded steps over a data x model mesh of ranks
+# ---------------------------------------------------------------------------
+
+
+class _Compute:
+    """The module each device computes with inside a step: the family's
+    module built on ``meta``, allocated (uninitialised) on the device when
+    the step first needs it there, the ranks' blocks gathered into it, and
+    dropped at the step's end (:meth:`release`)."""
+
+    def __init__(self, api: ModelApi):
+        self.api = api
+        self.models: Dict[torch.device, torch.nn.Module] = {}
+
+    def model(self, dev: torch.device, params: Dict[str, rules.Sharded]
+              ) -> torch.nn.Module:
+        m = self.models.get(dev)
+        if m is None:
+            m = self.api.init(mcommon.MetaGenerator()).to_empty(device=dev)
+            named = dict(m.named_parameters())
+            for n, s in params.items():
+                rules.gather(s, out=named[n].data)
+            self.models[dev] = m
+        return m
+
+    def release(self) -> None:
+        self.models.clear()
+
+
+def shard_params(params, pspec: Dict[str, rules.Spec], mesh
+                 ) -> Dict[str, rules.Sharded]:
+    """A model's parameters (or a ``{name: tensor}`` dict) laid out over
+    ``mesh`` by ``pspec``: each rank's blocks, on its device."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    with torch.no_grad():
+        return {n: rules.shard(t.detach(), pspec[n], mesh)
+                for n, t in params.items()}
+
+
+def _place_batch(batch: dict, bspec: dict, mesh) -> dict:
+    return {k: v if isinstance(v, rules.Sharded) else
+            rules.shard(torch.as_tensor(v), bspec[k], mesh)
+            for k, v in batch.items()}
+
+
+def _row_blocks(leaf: rules.Sharded, mesh):
+    """(data rank, slice of the global rows it holds) of
+    every data rank that holds rows of its own (a replicated dim: data
+    rank 0 alone)."""
+    out, seen = [], set()
+    for di in range(mesh.shape[mesh.axis_names[0]]):
+        rows = leaf.slices(di, 0)[0]
+        if rows.start not in seen:
+            seen.add(rows.start)
+            out.append((di, rows))
+    return out
+
+
+def shard_train_step(api: ModelApi, cfg: ArchConfig,
+                     opt_cfg: adamw.OptConfig, mesh, shape: ShapeConfig,
+                     params_shape: Any, batch_shape: Any):
+    """The train step over ``mesh`` (see the module docstring).  Returns
+    (step, pspec, ospec, bspec) as the JAX package does;
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    takes the parameters as :func:`shard_params` lays them out, the state
+    as ``adamw.init_sharded`` does (both updated in place), and the global
+    batch (tensors anywhere, or already ``rules.Sharded`` by ``bspec``)."""
+    pspec = rules.param_specs(cfg, params_shape, mesh)
+    ospec = {"m": pspec, "v": pspec, "step": ()}
+    bspec = rules.batch_specs(cfg, batch_shape, mesh, shape.global_batch)
+    loss_fn = make_loss_fn(api, cfg)
+    accum = max(1, cfg.grad_accum)
+    compute = _Compute(api)
+
+    def parts_of(batch: dict):
+        """{data rank: (device, [(micro-batch, weight, rows)])}."""
+        first = next(iter(batch.values()))
+        n_rows = first.shape[0]
+        if n_rows % accum:
+            raise ValueError(f"global batch {n_rows} does not split into "
+                             f"{accum} micro-batches")
+        micro = n_rows // accum
+        out = {}
+        for di, rows in _row_blocks(first, mesh):
+            dev = mesh.devices[di][0]
+            local = {k: v.block(di, 0) for k, v in batch.items()}
+            mine = []
+            for i in range(accum):
+                idx = [j - rows.start for j in range(rows.start, rows.stop)
+                       if j % accum == i]
+                if idx:
+                    sel = torch.as_tensor(idx, device=dev)
+                    mine.append((i, len(idx) / micro,
+                                 {k: v.index_select(0, sel)
+                                  for k, v in local.items()}))
+            out[di] = (dev, mine)
+        return out
+
+    def routings(params, parts) -> Dict[int, GlobalRouting]:
+        """The batch's expert counts of each micro-batch held by several
+        data ranks: one forward per rank's rows, without gradients."""
+        if cfg.family != "moe":
+            return {}
+        held: Dict[int, list] = {}
+        for di, (dev, mine) in parts.items():
+            for i, _, rows in mine:
+                held.setdefault(i, []).append((dev, rows))
+        out = {}
+        for i, holders in held.items():
+            if len(holders) < 2:
+                continue
+            gr = GlobalRouting()
+            for dev, rows in holders:
+                model = compute.model(dev, params)
+                gr.add_model(model)
+                with torch.no_grad(), gr.record():
+                    api.forward_hidden(model, rows)
+            out[i] = gr
+        return out
+
+    def train_step(params, opt_state, batch):
+        with shctx.use_mesh(mesh):
+            try:
+                return step_body(params, opt_state, batch)
+            finally:
+                compute.release()
+
+    def step_body(params, opt_state, batch):
+        batch = _place_batch(batch, bspec, mesh)
+        parts = parts_of(batch)
+        routing = routings(params, parts)
+        dev0 = mesh.devices[0][0]
+        gsum: Dict[str, torch.Tensor] = {}
+        lsum = torch.zeros((), device=dev0)
+        last = {"ce": torch.zeros((), device=dev0),
+                "aux": torch.zeros((), device=dev0)}
+        for di, (dev, mine) in parts.items():
+            if not mine:
+                continue
+            model = compute.model(dev, params)
+            named = dict(model.named_parameters())
+            for p in named.values():
+                p.grad = None
+            for i, w, rows in mine:
+                ctx = (routing[i].apply() if i in routing
+                       else contextlib.nullcontext())
+                with ctx:
+                    l, m = loss_fn(model, rows)
+                    (l if w == 1.0 else w * l).backward()
+                lsum = lsum + (w * l.detach()).to(dev0)
+                if i == accum - 1:
+                    for k in last:
+                        last[k] = last[k] + (w * m[k].detach()).to(dev0)
+            # the all-reduce of the data ranks' gradients, into rank (0, 0)'s
+            for n, p in named.items():
+                g, p.grad = p.grad, None
+                if n in gsum:
+                    gsum[n].add_(g.to(dev0))
+                else:
+                    gsum[n] = g if g.device == dev0 else g.to(dev0)
+                del g
+        for g in gsum.values():
+            g.div_(accum)
+        gnorm = adamw.global_norm(gsum)
+        opt_metrics = None
+        for di, mi in rules.ranks(mesh):
+            dev = mesh.devices[di][mi]
+            mine_p = {n: s.block(di, mi) for n, s in params.items()}
+            grads = {n: gsum[n][s.slices(di, mi)].to(dev)
+                     for n, s in params.items()}
+            state = {"m": {n: s.block(di, mi)
+                           for n, s in opt_state["m"].items()},
+                     "v": {n: s.block(di, mi)
+                           for n, s in opt_state["v"].items()},
+                     "step": opt_state["step"].block(di, mi)}
+            _, new_state, om = adamw.update(opt_cfg, grads, state, mine_p,
+                                            grad_norm=gnorm.to(dev))
+            opt_state["step"].blocks[di][mi] = new_state["step"]
+            if opt_metrics is None:
+                opt_metrics = om
+        del gsum
+        metrics = dict(last, loss=lsum / accum, **opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step, pspec, ospec, bspec
+
+
+def shard_serve_step(api: ModelApi, cfg: ArchConfig, mesh,
+                     shape: ShapeConfig, params_shape: Any, cache_shape: Any,
+                     lsh: Optional[LshServeParams] = None):
+    """The serve step over ``mesh`` (see the module docstring).  Returns
+    (step, pspec, cspec) as the JAX package does; ``step(params, cache,
+    tokens, pos) -> (out, cache)`` takes the parameters as
+    :func:`shard_params` lays them out and the cache as ``rules.shard_tree``
+    lays it out by ``cspec`` (written in place); ``out`` holds the whole
+    batch's ``logits`` (B, 1, V), ``next`` and ``lsh_sig`` on rank (0,
+    0)'s device."""
+    pspec = rules.param_specs(cfg, params_shape, mesh)
+    cspec = rules.cache_specs(cfg, cache_shape, mesh, shape.global_batch)
+    compute = _Compute(api)
+
+    def put(s, f):
+        if isinstance(s, dict):
+            for k in s:
+                put(s[k], f[k])
+        else:
+            rules.scatter(f, s)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        dev0 = mesh.devices[0][0]
+        with shctx.use_mesh(mesh):
+            try:
+                model = compute.model(dev0, params)
+                full = rules.gather_tree(cache, dev0)
+                logits, full = api.decode_step(model, full, tokens.to(dev0),
+                                               int(pos))
+                put(cache, full)
+            finally:
+                compute.release()
+        next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        out = {"logits": logits, "next": next_tok}
+        if lsh is not None and cfg.lsh_cache:
+            out["lsh_sig"] = lsh_signature(lsh, logits)
+        return out, cache
+
+    return serve_step, pspec, cspec

@@ -323,8 +323,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
 
 def test_resolve_device(monkeypatch):
     assert dispatch.resolve_device("cpu") == torch.device("cpu")
+    # "meta" sizes the dry run's cells (shapes, no memory)
+    assert dispatch.resolve_device("meta") == torch.device("meta")
     with pytest.raises(ValueError):
-        dispatch.resolve_device("meta")
+        dispatch.resolve_device("xpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for dev in (None, "cuda"):
         with pytest.raises(RuntimeError, match="device='cpu'"):

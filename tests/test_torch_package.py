@@ -225,7 +225,10 @@ def test_the_lm_stack_is_covered():
           "repro_torch.runtime", "repro_torch.runtime.steps",
           "repro_torch.runtime.driver", "repro_torch.data",
           "repro_torch.data.pipeline", "repro_torch.launch.train",
-          "repro_torch.launch.roofline", "repro_torch.convert"}
+          "repro_torch.launch.roofline", "repro_torch.convert",
+          "repro_torch.sharding.rules", "repro_torch.sharding.context",
+          "repro_torch.optim.compress", "repro_torch.launch.specs",
+          "repro_torch.launch.dryrun", "repro_torch.launch.report"}
     assert lm <= mods, sorted(lm - mods)
     sources = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
     for sub in ("configs", "models", "optim", "runtime", "data"):
